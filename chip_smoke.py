@@ -2,6 +2,7 @@
 """Build and drive the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # all phases but the profile (6)
+    python3 chip_smoke.py --phases 1,8    # build + the 1M-particle NNPS path
     python3 chip_smoke.py --phases 1,2    # build + kernel checks only
     python3 chip_smoke.py --phases 6      # the profile
 
@@ -16,6 +17,10 @@ Phases (each prints its own lines and raises on failure):
      ``rounding_bound``, each output within ``NORMWISE_LIMIT`` over
      occupied slots) for the linear EOS + Morris and the Tait EOS +
      artificial viscosity + delta-SPH schemes, fp16 and fp32 records;
+     then K4 (neighbor lists) and K5 (adjacency) bit for bit and K3
+     (fused A5 gradient) by ``sph_gradient.check_against_plain``, on
+     random clouds binned by ``bin_by_cell_id``, for fp16/bf16/fp32
+     storage, fp32 and fp16 compute, periodic and not;
   3. the main path at full size: ``Simulation.from_case("taylor_green",
      ds=1/1024)`` (N = 1,048,576, fp16 records) through ``run_timed``
      with observables every 10 steps; launch counts are zeroed just
@@ -31,8 +36,21 @@ Phases (each prints its own lines and raises on failure):
      goes: host-timed decision / rebuild / physics split with a
      synchronize after each, and a ``torch.profiler`` window with device
      time by kernel and the device's busy share;
-  7. planted faults in K2: the K2 check at the main path's inputs,
-     phase 2 and phase 5 must each fail on each.
+  7. planted faults: in K2, the K2 check at the main path's inputs,
+     phase 2 and phase 5 must each fail on each; in K4 alone and in K5
+     alone (r_cell^2 1% larger, the self pair kept) and in K3 (the sign of f_j - f_i
+     flipped, one cell edge 1% longer), phase 2's NNPS checks and
+     phase 8's checks must each fail on each;
+  8. the NNPS path at the paper's 1M scale: ``gradient_test_particles(
+     ds=1/1024)`` (N = 1,048,576) through ``rcll.init_state``,
+     ``cells.bin_by_cell_id`` and ``ops.rcll_neighbor_lists`` (K4),
+     ``ops.rcll_adjacency_cells`` (K5) and ``ops.rcll_gradient_particles``
+     (K3); launch counts zeroed just before and read just after; zero
+     binning overflow, K4 at most 48 neighbors and equal to
+     ``nnps.rcll_neighbors``, K5's counts equal to K4's, the gradient of
+     x^3 within the interior RMS gate; each kernel held against its plain
+     version and timed beside it and its bound; the paper's Table 2
+     wrong-determination counts against the fp64 truth (readings).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -66,27 +84,48 @@ def log(msg: str = "") -> None:
 # --------------------------------------------------------------------------
 # helpers
 # --------------------------------------------------------------------------
+#: (module, wrapper name, key in the capture store) of every kernel.
+WRAPPERS = (
+    ("cell_pack", "cell_tables", "k1"), ("rcll_force", "rcll_force", "k2"),
+    ("sph_gradient", "rcll_gradient", "k3"),
+    ("nnps_pairwise", "rcll_neighbor_list_tables", "k4"),
+    ("nnps_pairwise", "rcll_adjacency", "k5"),
+)
+
+
+def _kernel_modules() -> dict:
+    from repro_torch.kernels import cell_pack, nnps_pairwise, rcll_force, sph_gradient
+
+    return {"cell_pack": cell_pack, "rcll_force": rcll_force,
+            "sph_gradient": sph_gradient, "nnps_pairwise": nnps_pairwise}
+
+
+def wrapper(key: str):
+    """The kernel wrapper (and its launch counter) of K1..K5."""
+    mod, name, _ = next(w for w in WRAPPERS if w[2] == key)
+    return getattr(_kernel_modules()[mod], name)
+
+
 @contextlib.contextmanager
 def capture_kernel_inputs(store: dict):
-    """Record the arguments of the next K1/K2 wrapper calls (the calls
-    still go through the original wrappers and their counters)."""
-    from repro_torch.kernels import cell_pack, rcll_force
+    """Record the arguments of the next wrapper calls of each kernel (the
+    calls still go through the original wrappers and their counters)."""
+    saved = []
+    for mod_name, name, key in WRAPPERS:
+        mod = _kernel_modules()[mod_name]
+        orig = getattr(mod, name)
 
-    k1, k2 = cell_pack.cell_tables, rcll_force.rcll_force
+        def cap(*args, _orig=orig, _key=key, **kw):
+            store[_key] = (args, kw)
+            return _orig(*args, **kw)
 
-    def cap1(*args, **kw):
-        store["k1"] = (args, kw)
-        return k1(*args, **kw)
-
-    def cap2(*args, **kw):
-        store["k2"] = (args, kw)
-        return k2(*args, **kw)
-
-    cell_pack.cell_tables, rcll_force.rcll_force = cap1, cap2
+        saved.append((mod, name, orig))
+        setattr(mod, name, cap)
     try:
         yield store
     finally:
-        cell_pack.cell_tables, rcll_force.rcll_force = k1, k2
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
 
 
 @contextlib.contextmanager
@@ -153,6 +192,53 @@ def k2_work(args, kw):
     nbytes = (c1 * (d * cap * (rel.element_size() + 2 + v.element_size())
                     + cap * (m.element_size() + 4))
               + nb_ids.numel() * 4 + c1 * cap * (1 + d) * 4)
+    return pairs, ops, nbytes
+
+
+def _occupied_pairs(occ: torch.Tensor, nb_ids: torch.Tensor) -> int:
+    """Pairs of occupied slots in each cell's 3^d neighborhood (the pairs
+    whose distance K3, K4 and K5 must decide on these inputs)."""
+    n_occ = (occ > 0).sum(dim=1).to(torch.int64)
+    return int((n_occ[:, None] * n_occ[nb_ids.long()]).sum())
+
+
+def nnps_decision_ops(dim: int) -> int:
+    """Operations of one Eq. (7) decision: per axis subtract, halve,
+    subtract the offset, weight, square, add; then the compare."""
+    return 6 * dim + 1
+
+
+def k4_work(args, kw):
+    """(pairs decided, operations, bytes) of one K4 call on these inputs."""
+    rel, occ, ids, nb_ids = args
+    c1, d, cap = rel.shape
+    pairs = _occupied_pairs(occ, nb_ids)
+    nbytes = (rel.numel() * rel.element_size() + occ.numel() * 4 + ids.numel() * 4
+              + nb_ids.numel() * 4 + c1 * cap * kw["k_slots"] * 4 + c1 * cap * 4)
+    return pairs, pairs * nnps_decision_ops(d), nbytes
+
+
+def k5_work(args, kw):
+    """(pairs decided, operations, bytes) of one K5 call on these inputs."""
+    rel, occ, nb_ids = args
+    c1, d, cap = rel.shape
+    pairs = _occupied_pairs(occ, nb_ids)
+    nbytes = (rel.numel() * rel.element_size() + occ.numel() * 4 + nb_ids.numel() * 4
+              + c1 * nb_ids.shape[1] * cap * cap * 4 + c1 * cap * 4)
+    return pairs, pairs * nnps_decision_ops(d), nbytes
+
+
+def k3_work(args, kw, neighbors: int):
+    """(pairs decided, operations, bytes) of one K3 call: every occupied
+    pair is decided, and each of the ``neighbors`` accepted pairs costs
+    the physics tier (decode 6d - 1, sqrt, B-spline ~10, f_j - f_i 2,
+    per axis gradient, numerator and denominator 6)."""
+    rel, f, occ, nb_ids = args
+    c1, d, cap = rel.shape
+    pairs = _occupied_pairs(occ, nb_ids)
+    ops = pairs * nnps_decision_ops(d) + neighbors * ((6 * d - 1) + 1 + 10 + 2 + 6 * d)
+    nbytes = (rel.numel() * rel.element_size() + (f.numel() + occ.numel()) * 4
+              + nb_ids.numel() * 4 + 2 * c1 * d * cap * 4)
     return pairs, ops, nbytes
 
 
@@ -267,6 +353,69 @@ def phase2_kernels() -> None:
         log(f"[2] dim {dim} N {n} eos {eos} records {rec}: K1 bit-identical "
             f"(F16 {f16}, F32 {f32}); {k2_summary(c2)}; "
             f"{shifted} particles with non-zero shift")
+    phase2_nnps()
+
+
+STORAGE = {"fp16": torch.float16, "bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def _nnps_cloud_inputs(dim, n, storage, periodic, seed, dev=torch.device("cuda")):
+    """K3/K4/K5 inputs from the ops entry points on a random cloud binned
+    by ``bin_by_cell_id``; returns the capture store and the overflow."""
+    from repro_torch.core import cells, rcll
+    from repro_torch.core.domain import Domain
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    ds = (1.0 / n) ** (1.0 / dim)
+    dom = Domain(lo=(0.0,) * dim, hi=(1.0,) * dim, h=1.2 * ds,
+                 periodic=(periodic,) + (False,) * (dim - 1))
+    x = torch.as_tensor(rng.uniform(0, 1, (n, dim)).astype(np.float32), device=dev)
+    st = rcll.init_state(dom, dom.normalize(x), STORAGE[storage])
+    b = cells.bin_by_cell_id(dom, dom.flat_cell_id(st.cell_xy), st.cell_xy,
+                             cells.default_capacity(dom, n))
+    f = x[:, 0] ** 3 + 0.01 * torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    store: dict = {}
+    with capture_kernel_inputs(store):
+        ops.rcll_neighbor_lists(dom, b, st.rel, k=64, nnps_dtype=STORAGE[storage])
+        ops.rcll_adjacency_cells(dom, b, st.rel)
+        ops.rcll_gradient_particles(dom, b, st.rel, f)
+    return store, int(b.overflow)
+
+
+def phase2_nnps() -> None:
+    """K4 and K5 bit for bit and K3 within its bound, on random clouds."""
+    from repro_torch.kernels import nnps_pairwise, sph_gradient
+
+    cases = [
+        (2, 65536, "fp16", torch.float32, False), (2, 65536, "fp16", torch.float16, True),
+        (2, 65536, "bf16", torch.float32, True), (2, 65536, "fp32", torch.float16, False),
+        (3, 32768, "fp16", torch.float16, True), (3, 32768, "fp32", torch.float32, False),
+    ]
+    for i, (dim, n, storage, compute, periodic) in enumerate(cases):
+        store, overflow = _nnps_cloud_inputs(dim, n, storage, periodic, seed=200 + i)
+        if overflow:
+            raise AssertionError(f"test cloud overflowed its cell capacity ({overflow})")
+        a4, kw4 = store["k4"]
+        a5, kw5 = store["k5"]
+        a3, kw3 = store["k3"]
+        kw4, kw5, kw3 = (dict(kw4, compute_dtype=compute), dict(kw5, compute_dtype=compute),
+                         dict(kw3, nnps_dtype=compute))
+        c4 = nnps_pairwise.check_against_plain("K4", a4, kw4)
+        c5 = nnps_pairwise.check_against_plain("K5", a5, kw5)
+        c3 = sph_gradient.check_against_plain(a3, kw3)
+        log(f"[2] NNPS dim {dim} N {n} storage {storage} compute "
+            f"{str(compute).split('.')[-1]} periodic {periodic}: K4 bit-identical "
+            f"({c4['hits']} hits, K = 64), K5 bit-identical ({c5['hits']} hits); "
+            f"{k3_summary(c3)}")
+
+
+def k3_summary(c: dict) -> str:
+    from repro_torch.kernels import sph_gradient
+
+    return (f"K3 max|err| {c['max_abs_err']:.3e} (occupied slots), max err/bound "
+            f"{c['max_ratio']:.3e}, normwise {c['normwise']:.3e} "
+            f"(limit {sph_gradient.NORMWISE_LIMIT:g})")
 
 
 def phase3_main_path(results: dict) -> None:
@@ -485,8 +634,232 @@ def phase7_planted_faults() -> None:
                 log(f"[7] {fault}: {name} failed, as it must: {e}")
             finally:
                 rcll_force.kernel_params = params
+    missed += nnps_planted_faults()
     if missed:
         raise AssertionError(f"planted faults not caught: {missed}")
+
+
+def nnps_planted_faults() -> list:
+    """Faults planted in K4 or K5 alone (r_cell^2 1% larger; the self pair
+    kept) and in K3 (the sign of f_j - f_i flipped; the first cell edge 1%
+    longer) through their run-time parameters: phase 2's NNPS checks and
+    phase 8's checks (the path driven again with the faulty kernel) must
+    each fail on each. Returns the (fault, check) pairs that passed."""
+    from repro_torch.kernels import nnps_pairwise, sph_gradient
+
+    def nnps_fault(fault):
+        # K4 and K5 share kernel_params: plant in the named kernel's call only
+        kernel, fault = fault.split(":")
+        caller = {"K4": "rcll_neighbor_list_tables", "K5": "rcll_adjacency"}[kernel]
+        params = nnps_pairwise.kernel_params
+
+        def faulty(**kw):
+            f, i = params(**kw)
+            if sys._getframe(1).f_code.co_name != caller:
+                return f, i
+            if fault == "r2_cell_1pct":
+                f[3] *= 1.01
+            else:
+                i[0] = 1  # keep_self
+            return f, i
+        return nnps_pairwise, faulty
+
+    def gradient_fault(fault):
+        params = sph_gradient.kernel_params
+
+        def faulty(**kw):
+            f = params(**kw)
+            if fault == "df_sign":
+                f[9] = -1.0
+            else:
+                f[4] *= 1.01  # hc_phys[0]
+            return f
+        return sph_gradient, faulty
+
+    checks = (("phase 2 NNPS", phase2_nnps),
+              ("phase 8", lambda: nnps_path_checks(nnps_path_run())))
+    missed = []
+    faults = [(f"{kernel}:{fault}", nnps_fault) for kernel in ("K4", "K5")
+              for fault in ("r2_cell_1pct", "self_pair")]
+    for fault, plant in faults + [("df_sign", gradient_fault), ("hc0_1pct", gradient_fault)]:
+        for name, check in checks:
+            mod, faulty = plant(fault)
+            params = mod.kernel_params
+            mod.kernel_params = faulty
+            try:
+                check()
+                missed.append((fault, name))
+                log(f"[7] {fault}: {name} PASSED: the fault was not caught")
+            except AssertionError as e:
+                log(f"[7] {fault}: {name} failed, as it must: {e}")
+            finally:
+                mod.kernel_params = params
+    return missed
+
+
+#: Phase 8's NNPS path: the paper's 1M-particle 2-D gradient case and the
+#: list width of benchmarks/table6_sort_locality.py.
+NNPS_DS = 1.0 / 1024
+NNPS_K = 48
+
+
+def nnps_path_run(dev=torch.device("cuda")) -> dict:
+    """Drive the NNPS path once through its entry points (README, the
+    port's section); launch counts of K3-K5 are zeroed just before and
+    read just after. Returns the path's outputs and the kernels' inputs."""
+    from repro_torch.core import cases, cells, rcll
+    from repro_torch.kernels import ops
+
+    dom, x = cases.gradient_test_particles(ds=NNPS_DS, jitter=0.2, seed=0)
+    n = x.shape[0]
+    store: dict = {}
+    for key in ("k3", "k4", "k5"):
+        wrapper(key).launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with capture_kernel_inputs(store):
+        xt = torch.as_tensor(x, device=dev)
+        xn = dom.normalize(xt)
+        st = rcll.init_state(dom, xn)
+        cap = cells.default_capacity(dom, n)
+        b = cells.bin_by_cell_id(dom, dom.flat_cell_id(st.cell_xy), st.cell_xy, cap)
+        nl = ops.rcll_neighbor_lists(dom, b, st.rel, k=NNPS_K)
+        adj, cnt = ops.rcll_adjacency_cells(dom, b, st.rel)
+        f = cases.cubic_field(xt).float()
+        g = ops.rcll_gradient_particles(dom, b, st.rel, f)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {key: wrapper(key).launches for key in ("k3", "k4", "k5")}
+    return dict(dom=dom, x=x, xn=xn, st=st, cap=cap, b=b, nl=nl, adj=adj, cnt=cnt, f=f, g=g,
+                store=store, launches=launches, wall=wall)
+
+
+def nnps_path_checks(run: dict) -> dict:
+    """Phase 8's gates on one run of the path; raises AssertionError."""
+    from repro_torch.core import cases, nnps
+    from repro_torch.kernels import nnps_pairwise, sph_gradient
+
+    dom, b, nl, st = run["dom"], run["b"], run["nl"], run["st"]
+    if any(v != 1 for v in run["launches"].values()):
+        raise AssertionError(f"NNPS path launches {run['launches']}, expected one each")
+    if int(b.overflow) != 0:
+        raise AssertionError(f"binning overflow {int(b.overflow)}")
+    max_count = int(nl.count.max())
+    if max_count > NNPS_K:
+        raise AssertionError(f"K4 found up to {max_count} neighbors, more than K = {NNPS_K}")
+    ref = nnps.rcll_neighbors(dom, st.rel, st.cell_xy, compute_dtype=torch.float32, k=NNPS_K,
+                              binning=b)
+    if not bool(nnps.neighbor_sets_equal(nl, ref).all()):
+        raise AssertionError("K4's neighbor sets differ from nnps.rcll_neighbors")
+    same_ids = bool(torch.equal(torch.where(nl.mask, nl.idx, -1), torch.where(ref.mask, ref.idx, -1)))
+    if not same_ids:
+        raise AssertionError("K4's lists are not in nnps.rcll_neighbors' order")
+    if not torch.equal(run["cnt"].to(torch.int32), nl.count):
+        raise AssertionError("K5's counts differ from K4's")
+    x = run["x"]
+    g = run["g"].cpu().numpy()
+    if not np.isfinite(g).all():
+        raise AssertionError("non-finite gradient")
+    interior = (np.abs(x - 0.5) < 0.5 - 2.5 * dom.h).all(axis=1)
+    rms = float(np.sqrt(np.mean((g[interior, 0] - cases.cubic_gradient_x(x)[interior]) ** 2)))
+    if not rms < 0.15:
+        raise AssertionError(f"interior RMS of the x^3 gradient {rms:.3e} >= 0.15")
+    a4, kw4 = run["store"]["k4"]
+    a5, kw5 = run["store"]["k5"]
+    a3, kw3 = run["store"]["k3"]
+    return dict(max_count=max_count, rms=rms, interior=int(interior.sum()),
+                k4=nnps_pairwise.check_against_plain("K4", a4, kw4),
+                k5=nnps_pairwise.check_against_plain("K5", a5, kw5),
+                k3=sph_gradient.check_against_plain(a3, kw3))
+
+
+def phase8_nnps_path(results: dict) -> None:
+    from repro_torch.core import cells, nnps, rcll
+    from repro_torch.kernels import nnps_pairwise, ops, sph_gradient
+
+    torch.cuda.reset_peak_memory_stats()
+    run = nnps_path_run()
+    dom, b, nl, st = run["dom"], run["b"], run["nl"], run["st"]
+    n = run["x"].shape[0]
+    log(f"[8] gradient_test_particles ds=1/{round(1 / NNPS_DS)}: N {n}, cells {dom.ncells}, "
+        f"cap {run['cap']}, r_cell {nnps.rcll_radius_cell_units(dom):.9g}; path "
+        f"{1e3 * run['wall']:.3f} ms (host clock, synchronized); launches K3 "
+        f"{run['launches']['k3']}, "
+        f"K4 {run['launches']['k4']}, K5 {run['launches']['k5']}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    c = nnps_path_checks(run)
+    log(f"[8] overflow 0; K4 max count {c['max_count']} <= {NNPS_K}; K4 sets, ids and counts "
+        f"equal nnps.rcll_neighbors (fp16 storage, fp32 compute); K5 counts equal K4's; "
+        f"interior RMS of d(x^3)/dx vs 3x^2: {c['rms']:.6e} over {c['interior']} particles "
+        f"(gate 0.15)")
+    log(f"[8] kernel vs plain at these inputs: K4 bit-identical ({c['k4']['hits']} hits), "
+        f"K5 bit-identical ({c['k5']['hits']} hits); {k3_summary(c['k3'])}")
+
+    # The paper's Table 2: wrong determinations against the fp64 truth.
+    x64 = torch.as_tensor(run["x"], dtype=torch.float64, device="cuda")
+    truth = nnps.reference_neighbors(dom, dom.normalize(x64, dtype=torch.float64), k=NNPS_K)
+    total = int(truth.count.sum())
+    fp16_arith = ops.rcll_neighbor_lists(dom, b, st.rel, k=NNPS_K, compute_dtype=torch.float16)
+    abs16 = nnps.cell_list_neighbors(dom, run["xn"], dtype=torch.float16, k=NNPS_K)
+    for name, nlx in (("K4 lists (fp16 storage, fp32 compute; approach III)", nl),
+                      ("K4 lists (fp16 storage, fp16 arithmetic)", fp16_arith),
+                      ("cell_list_neighbors fp16 absolute coordinates (approach II)", abs16)):
+        wrong = int(nnps.count_wrong_determinations(truth, nlx))
+        log(f"[8] Table 2: {name}: {wrong} wrong determinations of {total} true pairs "
+            f"({100.0 * wrong / total:.6f} %)")
+
+    # Where the path's time goes (synchronized, second call).
+    split = {}
+    sync = torch.cuda.synchronize
+    t = time.perf_counter()
+    xn = dom.normalize(torch.as_tensor(run["x"], device="cuda"))
+    st2 = rcll.init_state(dom, xn)
+    sync()
+    split["to_device+normalize+init_state"] = time.perf_counter() - t
+    t = time.perf_counter()
+    b2 = cells.bin_by_cell_id(dom, dom.flat_cell_id(st2.cell_xy), st2.cell_xy, run["cap"])
+    sync()
+    split["bin_by_cell_id"] = time.perf_counter() - t
+    for name, fn in (("rcll_neighbor_lists (K4)", lambda: ops.rcll_neighbor_lists(
+                          dom, b2, st2.rel, k=NNPS_K)),
+                     ("rcll_adjacency_cells (K5)", lambda: ops.rcll_adjacency_cells(
+                          dom, b2, st2.rel)),
+                     ("rcll_gradient_particles (K3)", lambda: ops.rcll_gradient_particles(
+                          dom, b2, st2.rel, run["f"]))):
+        t = time.perf_counter()
+        fn()
+        sync()
+        split[name] = time.perf_counter() - t
+    log("[8] path split (ms, synchronized, second call): " + ", ".join(
+        f"{k} {1e3 * v:.3f}" for k, v in split.items()))
+
+    # Each kernel at these inputs beside its plain version and its bound.
+    rows = []
+    for key, name, src, rep, work, plain in (
+        ("k3", "rcll_gradient", "sph_gradient.cu", "src/repro/kernels/sph_gradient.py:93",
+         # K3 decides in fp16 as K4 does with fp16 arithmetic: same accepted pairs
+         lambda a, kw: k3_work(a, kw, int(fp16_arith.count.sum())),
+         sph_gradient.rcll_gradient_ref),
+        ("k4", "rcll_neighbor_list_tables", "nnps_pairwise.cu",
+         "src/repro/kernels/nnps_pairwise.py:158", k4_work,
+         nnps_pairwise.rcll_neighbor_list_tables_ref),
+        ("k5", "rcll_adjacency", "nnps_pairwise.cu", "src/repro/kernels/nnps_pairwise.py:224",
+         k5_work, nnps_pairwise.rcll_adjacency_ref),
+    ):
+        a, kw = run["store"][key]
+        fn = wrapper(key)
+        ms = time_ms(lambda: fn(*a, **kw), reps=10)
+        plain_ms = time_ms(lambda: plain(*a, **kw), reps=3, warmup=1)
+        pairs, ops_n, nbytes = work(a, kw)
+        bms, by = bound(nbytes, ops_n)
+        log(f"[8] {key.upper()} {name} rel {tuple(a[0].shape)} {a[0].dtype}: {ms:.4f} ms "
+            f"(plain {plain_ms:.4f} ms), bound {bms:.4f} ms by {by} ({pairs} pairs decided, "
+            f"{ops_n:.4g} ops, {nbytes} bytes)")
+        rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+                     "replaces": rep, "launches": run["launches"][key],
+                     "max_abs_err": c[key]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": None})
+    results["nnps_kernels"] = rows
 
 
 def phase6_profile(nsteps: int = 10) -> None:
@@ -536,7 +909,7 @@ def phase6_profile(nsteps: int = 10) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8",
                     help="comma-separated phases to run (default: all but 6)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -561,10 +934,12 @@ def main() -> int:
         phase6_profile()
     if 7 in phases:
         phase7_planted_faults()
+    if 8 in phases:
+        phase8_nnps_path(results)
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
     if 1 not in phases:
         log(gpu_line())
-    log(json.dumps({"kernels": results.get("kernels", [])}))
+    log(json.dumps({"kernels": results.get("kernels", []) + results.get("nnps_kernels", [])}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

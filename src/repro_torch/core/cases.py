@@ -641,3 +641,28 @@ class TaylorGreenCase:
             "decay_rate_analytic": ana,
             "decay_rate_rel_err": abs(lam - ana) / ana,
         }
+
+
+def gradient_test_particles(ds: float, jitter: float = 0.2, seed: int = 0,
+                            dim: int = 2) -> tuple[Domain, np.ndarray]:
+    """Unit-domain particle set (numpy, float64) for the f(x) = x^3
+    gradient study (the paper's Table 3); the jitter breaks the lattice's
+    symmetry and its exact-boundary distance ties."""
+    h = 1.2 * ds
+    dom = Domain(lo=(0.0,) * dim, hi=(1.0,) * dim, h=h)
+    axes = [np.arange(ds / 2, 1.0, ds) for _ in range(dim)]
+    grid = np.meshgrid(*axes, indexing="ij")
+    x = np.stack([g.ravel() for g in grid], axis=-1).astype(np.float64)
+    rng = np.random.default_rng(seed)
+    x = x + rng.uniform(-jitter * ds, jitter * ds, size=x.shape)
+    x = np.clip(x, 1e-6, 1.0 - 1e-6)
+    return dom, x
+
+
+def cubic_field(x):
+    """f = x^3 on axis 0 (the paper's Table 3 test function)."""
+    return x[..., 0] ** 3
+
+
+def cubic_gradient_x(x):
+    return 3.0 * x[..., 0] ** 2

@@ -1,6 +1,9 @@
 """Static-capacity background-cell binning and the cell-packed layout.
 
-Port of the persistent-pipeline half of ``repro.core.cells``: particles
+Port of ``repro.core.cells``. ``bin_by_cell_id`` bins a state in its own
+order (the table holds original particle ids; the NNPS path), and
+``gather_candidates`` reads each particle's 3^d-cell candidate ids from
+that table. For the persistent pipeline particles
 are stably sorted by flat cell id (the paper's xy-sort locality
 optimization), after which cell c's occupants are exactly the packed ids
 ``starts[c] .. starts[c] + counts[c] - 1`` and the ``(C, cap)`` cell
@@ -45,6 +48,80 @@ def neighbor_cell_offsets(dim: int) -> np.ndarray:
     """All 3^dim offsets in {-1,0,1}^dim (static, host-side)."""
     grids = np.meshgrid(*([np.array([-1, 0, 1])] * dim), indexing="ij")
     return np.stack([g.ravel() for g in grids], axis=-1).astype(np.int32)
+
+
+def bin_particles(domain: Domain, xn: torch.Tensor, capacity: int) -> CellBinning:
+    """Assign particles (normalized coords ``xn``, fp32 or wider) to
+    cells; binning is an integer decision and never runs low-precision."""
+    cell_xy = domain.cell_coords_of(xn)
+    cell_id = domain.flat_cell_id(cell_xy)
+    return bin_by_cell_id(domain, cell_id, cell_xy, capacity)
+
+
+def _table_from_sorted(n_total: int, sorted_cid: torch.Tensor, values: torch.Tensor,
+                       capacity: int):
+    """Scatter cell-sorted per-particle ``values`` into the (C, cap) table.
+
+    Each particle's slot is its rank within its cell; entries past
+    ``capacity`` go to a scratch row that is sliced off. Returns
+    (table, counts, overflow).
+    """
+    npart = sorted_cid.shape[0]
+    dev = sorted_cid.device
+    cid = sorted_cid.long()
+    counts = torch.bincount(cid, minlength=n_total).to(torch.int32)
+    slot = torch.arange(npart, dtype=torch.int32, device=dev) - exclusive_cumsum(counts)[cid]
+    keep = slot < capacity
+    overflow = torch.sum(~keep).to(torch.int32)
+    safe_cid = torch.where(keep, cid, n_total)
+    safe_slot = torch.where(keep, slot, 0).long()
+    table = torch.full((n_total + 1, capacity), -1, dtype=torch.int32, device=dev)
+    table[safe_cid, safe_slot] = values.to(torch.int32)
+    return table[:n_total], counts, overflow
+
+
+def bin_by_cell_id(domain: Domain, cell_id: torch.Tensor, cell_xy: torch.Tensor,
+                   capacity: int) -> CellBinning:
+    """Bin from a precomputed cell assignment (the RCLL state's own cell
+    coordinates, never recomputed from absolute positions). The stable
+    sort by cell id is the paper's spatial sort; the table holds the
+    original particle ids."""
+    order = torch.argsort(cell_id, stable=True).to(torch.int32)
+    table, counts, overflow = _table_from_sorted(
+        domain.ncells_total, cell_id[order.long()], order, capacity)
+    return CellBinning(table=table, counts=counts, cell_id=cell_id, cell_xy=cell_xy,
+                       order=order, overflow=overflow)
+
+
+def candidate_cells(domain: Domain, cell_xy: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat ids of each particle's 3^dim neighborhood cells.
+
+    Returns (nb_flat (N, 3^dim) int32, nb_valid (N, 3^dim) bool): periodic
+    axes wrap, out-of-range cells on wall axes are invalid.
+    """
+    dev = cell_xy.device
+    offs = torch.as_tensor(neighbor_cell_offsets(domain.dim), device=dev)
+    nb = cell_xy[:, None, :] + offs[None, :, :]
+    n = torch.tensor(domain.ncells, dtype=torch.int32, device=dev)
+    per = torch.tensor(domain.periodic, dtype=torch.bool, device=dev)
+    wrapped = torch.where(per, torch.remainder(nb, n), nb)
+    valid = torch.all((wrapped >= 0) & (wrapped < n), dim=-1)
+    clipped = torch.clamp(wrapped, min=torch.zeros_like(n), max=n - 1)
+    return _flat_of(domain, clipped).to(torch.int32), valid
+
+
+def gather_candidates(domain: Domain, binning: CellBinning) -> tuple[torch.Tensor, torch.Tensor]:
+    """Candidate particle ids from each particle's 3^dim cell neighborhood.
+
+    Returns (cand (N, 3^dim·cap) int32, invalid -> 0; mask (N, 3^dim·cap)
+    bool, slot occupied and cell valid).
+    """
+    nb_flat, nb_valid = candidate_cells(domain, binning.cell_xy)
+    cand = binning.table[nb_flat.long()]
+    mask = (cand >= 0) & nb_valid[:, :, None]
+    npart = binning.cell_id.shape[0]
+    cand = torch.where(mask, cand, torch.zeros_like(cand))
+    return cand.reshape(npart, -1), mask.reshape(npart, -1)
 
 
 class CellPacking(NamedTuple):

@@ -192,6 +192,14 @@ class Domain:
         return torch.where(per, wrapped, delta).to(torch.int32)
 
 
+def unit_square(h: float, **kw) -> Domain:
+    return Domain(lo=(0.0, 0.0), hi=(1.0, 1.0), h=h, **kw)
+
+
+def unit_cube(h: float, **kw) -> Domain:
+    return Domain(lo=(0.0, 0.0, 0.0), hi=(1.0, 1.0, 1.0), h=h, **kw)
+
+
 def lattice_positions(domain: Domain, ds: float, jitter: float = 0.0,
                       seed: int = 0) -> np.ndarray:
     """Regular particle lattice with optional jitter (numpy, host-side)."""

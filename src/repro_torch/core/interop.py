@@ -1,17 +1,24 @@
-"""Plain numpy interchange of an ``SPHState``.
+"""Plain numpy interchange of the port's states and search results.
 
 Keys are the JAX package's field paths (``xn``, ``rc.cell_xy``,
 ``rc.rel``, ``fluid.v``, ``fluid.rho``, ``fluid.m``, ``fixed``, ``t``,
 ``kind``, ``v_wall``), so a state built by either package can start the
 other: ``rc.rel`` travels as its storage dtype (fp16 bits unchanged),
 integers and flags keep their width. Optional fields may be absent.
+
+The NNPS path's inputs and outputs travel the same way, keyed by their
+JAX field names (:func:`fields_to_numpy` / :func:`fields_from_numpy`):
+``RCLLState`` (cell_xy, rel), ``CellBinning`` (table, counts, cell_id,
+cell_xy, order, overflow) and ``NeighborList`` (idx, mask, count, trunc).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import rcll, sph
+from repro_torch.core import cells, nnps, rcll, sph
 from repro_torch.core.solver import SPHState
 
 _DTYPES = {
@@ -69,3 +76,44 @@ def state_to_numpy(state: SPHState) -> dict[str, np.ndarray]:
         "v_wall": state.v_wall,
     }
     return {k: v.detach().cpu().numpy() for k, v in out.items() if v is not None}
+
+
+#: Field dtypes per NamedTuple; None keeps a float field's storage dtype.
+_FIELDS = {
+    rcll.RCLLState: {"cell_xy": torch.int32, "rel": None},
+    cells.CellBinning: dict.fromkeys(cells.CellBinning._fields, torch.int32),
+    nnps.NeighborList: {"idx": torch.int32, "mask": torch.bool, "count": torch.int32,
+                        "trunc": torch.bool},
+}
+
+
+def _float_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    if arr.dtype.name == "bfloat16":  # JAX's bf16 arrays; widening to fp32 is exact
+        return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
+    if arr.dtype not in (np.float16, np.float32, np.float64):
+        raise ValueError(f"expected a float array, got {arr.dtype}")
+    return torch.tensor(arr, device=device)
+
+
+def fields_from_numpy(cls: type, fields: dict, device) -> NamedTuple:
+    """An ``RCLLState``, ``CellBinning`` or ``NeighborList`` on ``device``
+    from numpy arrays keyed by field name (``trunc`` may be absent)."""
+    out = {}
+    for key, dtype in _FIELDS[cls].items():
+        if fields.get(key) is None:
+            continue
+        arr = np.asarray(fields[key])
+        out[key] = (_float_tensor(arr, device) if dtype is None
+                    else torch.tensor(arr, device=device).to(dtype))
+    return cls(**out)
+
+
+def fields_to_numpy(value: NamedTuple) -> dict[str, np.ndarray]:
+    """Numpy arrays keyed by field name (None fields skipped; bf16 as fp32)."""
+    out = {}
+    for key, t in value._asdict().items():
+        if t is None:
+            continue
+        t = t.detach().cpu()
+        out[key] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return out

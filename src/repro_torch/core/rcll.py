@@ -1,9 +1,11 @@
 """Persistent RCLL state: the paper's Eqs. (6)-(8).
 
-Port of the persistent-pipeline part of ``repro.core.rcll``. State per
-particle is ``cell_xy`` (N, d) int32 plus ``rel`` (N, d) in the storage
-dtype (fp16). Eq. (8): rel += 2·dx/h_c accumulated in fp32, then
-migrate: shift the cell by floor((rel + 1)/2) and re-center rel.
+Port of ``repro.core.rcll``. State per particle is ``cell_xy`` (N, d)
+int32 plus ``rel`` (N, d) in the storage dtype (fp16). Eq. (8): rel +=
+2·dx/h_c accumulated in fp32, then migrate: shift the cell by
+floor((rel + 1)/2) and re-center rel. Eq. (7) decodes a pair's physical
+displacement from the two relative coordinates and the exact integer
+cell delta (:func:`decode_pair_disp`).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import cells as cells_lib
+from repro_torch.core import nnps
 from repro_torch.core.domain import Domain
 from repro_torch.core.precision import NNPS_STORE
 
@@ -84,3 +87,57 @@ def pack_state(domain: Domain, state: RCLLState, capacity: int,
     )
     rc = RCLLState(cell_xy=packing.binning.cell_xy, rel=packing.pack(state.rel))
     return PackedState(rc=rc, packing=packing)
+
+
+def neighbors(domain: Domain, state: RCLLState, *, dtype=NNPS_STORE, k: int,
+              capacity: int | None = None, include_self: bool = False,
+              radius_cell: float | None = None
+              ) -> tuple[nnps.NeighborList, cells_lib.CellBinning]:
+    """Search neighbors from the state (unpacked order); also returns the
+    binning."""
+    n = state.rel.shape[0]
+    capacity = capacity or cells_lib.default_capacity(domain, n)
+    cell_id = domain.flat_cell_id(state.cell_xy)
+    binning = cells_lib.bin_by_cell_id(domain, cell_id, state.cell_xy, capacity)
+    nl = nnps.rcll_neighbors(domain, state.rel, state.cell_xy, dtype=dtype, k=k,
+                             binning=binning, include_self=include_self,
+                             radius_cell=radius_cell)
+    return nl, binning
+
+
+def pair_r2_cell(domain: Domain, state: RCLLState, nl: nnps.NeighborList, *,
+                 dtype=NNPS_STORE, compute_dtype=None) -> torch.Tensor:
+    """Eq. (7) squared pair distances (reference-cell units) for ``nl``,
+    in the arithmetic of :func:`nnps.rcll_neighbors`, so a radius filter
+    on them reproduces a fresh search's decisions bit for bit."""
+    cdt = compute_dtype or dtype
+    idx = nl.idx.long()
+    rel = state.rel.to(dtype)
+    delta = domain.wrap_cell_delta(state.cell_xy[:, None, :] - state.cell_xy[idx])
+    w = torch.tensor(domain.cell_weights, dtype=torch.float32, device=rel.device)
+    return nnps.rcll_r2_cell_units(rel[:, None, :], rel[idx], delta, w, dtype=cdt)
+
+
+def decode_pair_disp(domain: Domain, rel_i: torch.Tensor, rel_j: torch.Tensor,
+                     delta: torch.Tensor, dtype=torch.float32
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. (7) reconstruction of the physical pair displacement x_i - x_j.
+
+    Per axis: half the relative payload difference plus the integer cell
+    delta I - J (min-image wrapped), at ``dtype``, then cell units to
+    normalized to physical units. Returns (disp (..., d), r (...,)).
+    """
+    du = (rel_i.to(dtype) - rel_j.to(dtype)) * 0.5 + delta.to(dtype)
+    hc = torch.tensor(domain.hc_norm_axes, dtype=dtype, device=du.device)
+    disp_phys = (du * hc) * (domain.h_d / 2.0)
+    r = torch.sqrt(nnps._sum_last(disp_phys * disp_phys))
+    return disp_phys, r
+
+
+def pair_displacements(domain: Domain, state: RCLLState, nl: nnps.NeighborList,
+                       dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Physical displacements x_i - x_j (N, K, d) and distances (N, K) of
+    the pairs in ``nl``, decoded at ``dtype`` by :func:`decode_pair_disp`."""
+    idx = nl.idx.long()
+    delta = domain.wrap_cell_delta(state.cell_xy[:, None, :] - state.cell_xy[idx])
+    return decode_pair_disp(domain, state.rel[:, None, :], state.rel[idx], delta, dtype=dtype)

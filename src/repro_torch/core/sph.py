@@ -1,15 +1,65 @@
-"""SPH state and the pair primitives of the WCSPH right-hand side.
+"""SPH state, gradient operators and the pair primitives of the WCSPH
+right-hand side.
 
-Port of the parts of ``repro.core.sph`` that the force pass uses: the
-fluid state, the linear Tait EOS (also in reciprocal-density form) and
-the pressure / Morris-viscosity pair coefficients. The gather-path
-gradient operators wait for the ``reference`` backend (ROADMAP Queue 1).
+Port of ``repro.core.sph``: the fluid state, the linear Tait EOS (also in
+reciprocal-density form), the pressure / Morris-viscosity pair
+coefficients, and the gradient operators over explicit neighbor lists
+(Eq. 2 and Appendix A5) that the NNPS path and its oracles use. The
+gather-path governing equations wait for the ``reference`` backend
+(ROADMAP Queue 1 item 4b).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core import bspline
+
+
+def grad_w(disp: torch.Tensor, r: torch.Tensor, h: float, dim: int,
+           mask: torch.Tensor) -> torch.Tensor:
+    """∂W_ij/∂x_i = (dW/dr)(x_i - x_j)/r, masked, (N, K, d); disp = x_i - x_j."""
+    g = bspline.dw_over_r(r, h, dim)[..., None] * disp
+    return torch.where(mask[..., None], g, torch.zeros_like(g))
+
+
+def guard_den(den: torch.Tensor, eps: float) -> torch.Tensor:
+    """``den`` with magnitudes at or below ``eps`` replaced by ±eps (its sign)."""
+    sign_eps = torch.where(den >= 0, eps, -eps).to(den.dtype)
+    return torch.where(torch.abs(den) > eps, den, sign_eps)
+
+
+def gradient_standard(f: torch.Tensor, vol: torch.Tensor, nl_idx: torch.Tensor,
+                      gw: torch.Tensor) -> torch.Tensor:
+    """Standard SPH gradient (Eq. 2): Σ_j V_j f_j ∂W/∂x, (N, d)."""
+    idx = nl_idx.long()
+    return torch.sum((vol[idx] * f[idx])[..., None] * gw, dim=1)
+
+
+def gradient_normalized(f: torch.Tensor, x: torch.Tensor, nl_idx: torch.Tensor,
+                        nl_mask: torch.Tensor, gw: torch.Tensor,
+                        eps: float = 1e-12) -> torch.Tensor:
+    """First-order consistent, volume-free gradient (Appendix Eq. A5):
+    Σ_j (f_j - f_i) ∂W/∂x_a over Σ_j (x_j - x_i)_a ∂W/∂x_a, per axis."""
+    idx = nl_idx.long()
+    df = (f[idx] - f[:, None]) * nl_mask
+    dx = (x[idx] - x[:, None, :]) * nl_mask[..., None]
+    num = torch.sum(df[..., None] * gw, dim=1)
+    den = torch.sum(dx * gw, dim=1)
+    return num / guard_den(den, eps)
+
+
+def gradient_normalized_pairs(f: torch.Tensor, disp: torch.Tensor, r: torch.Tensor,
+                              nl_idx: torch.Tensor, nl_mask: torch.Tensor, h: float,
+                              dim: int, eps: float = 1e-12) -> torch.Tensor:
+    """The A5 gradient from pair displacements (disp = x_i - x_j, decoded
+    by Eq. 7 on the RCLL path, where positions are never absolute)."""
+    gw = grad_w(disp, r, h, dim, nl_mask)
+    df = (f[nl_idx.long()] - f[:, None]) * nl_mask
+    num = torch.sum(df[..., None] * gw, dim=1)
+    den = torch.sum((-disp) * nl_mask[..., None] * gw, dim=1)
+    return num / guard_den(den, eps)
 
 
 class FluidState(NamedTuple):

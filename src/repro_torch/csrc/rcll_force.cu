@@ -41,6 +41,7 @@
 namespace {
 
 using repro_torch::cell_offset;
+using repro_torch::dw_over_r;
 using repro_torch::pair_disp;
 using repro_torch::reanchor;
 using repro_torch::to_f32;
@@ -147,14 +148,7 @@ __global__ void rcll_force_kernel(const RelT* __restrict__ rel,
       for (int a = 0; a < DIM; ++a) rj[a] = s_r[a * cap + j];
       float disp[DIM];
       const float r2 = pair_disp<DIM>(ri, rj, off, hc, disp);
-      const float r = sqrtf(r2);
-      // bspline.dw_over_r
-      const float R = r / p.h;
-      const float d1 = -2.0f * R + 1.5f * R * R;
-      const float t = 2.0f - R;
-      const float d2 = -0.5f * (t * t);
-      const float dwdr = p.a_dw * (R < 1.0f ? d1 : (R < 2.0f ? d2 : 0.0f));
-      const float coef = dwdr / (r > 1e-12f ? r : 1.0f);
+      const float coef = dw_over_r(sqrtf(r2), p.h, p.a_dw);
 
       const float mj = s_m[j];
       const float inv_j = s_inv[j];

@@ -1,12 +1,16 @@
-"""Wrappers around the port's kernels: cell-table packing for the force pass.
+"""Wrappers around the port's kernels and the cell-table packing they need.
 
-Port of the force-pass half of ``repro.kernels.ops``. The kernels consume
-cell-major tables ``(C+1, F, cap)``; row C is a sentinel empty cell that
-out-of-domain neighborhood slots point at. Because the persistent
-pipeline's arrays are cell-sorted, the per-step tiles are built by one
-sweep of the cell-pack kernel (K1) from two record slabs — a 16-bit
-``[rel | shift | v]`` slab and an fp32 ``[1/ρ | ...]`` slab — and consumed
-by the force kernel (K2).
+Port of ``repro.kernels.ops``. The kernels consume cell-major tables
+``(C+1, F, cap)``; row C is a sentinel empty cell that out-of-domain
+neighborhood slots point at.
+
+  * The force pass: the persistent pipeline's arrays are cell-sorted, so
+    the per-step tiles are built by one sweep of the cell-pack kernel
+    (K1) from two record slabs — a 16-bit ``[rel | shift | v]`` slab and
+    an fp32 ``[1/ρ | ...]`` slab — and consumed by the force kernel (K2).
+  * The NNPS path: :func:`pack_cells` gathers a binning's particles into
+    the tables, and the neighbor lists (K4), the dense adjacency (K5) and
+    the fused A5 gradient (K3) come back per particle.
 """
 from __future__ import annotations
 
@@ -17,10 +21,13 @@ import torch
 
 from repro_torch.core import cells as cells_lib
 from repro_torch.core import fused
+from repro_torch.core import nnps as nnps_lib
 from repro_torch.core import rcll as rcll_lib
 from repro_torch.core import scheme as scheme_lib
+from repro_torch.core import sph
 from repro_torch.core.domain import Domain
-from repro_torch.kernels import cell_pack, rcll_force
+from repro_torch.core.precision import NNPS_STORE
+from repro_torch.kernels import cell_pack, nnps_pairwise, rcll_force, sph_gradient
 
 
 def cell_neighbor_ids(domain: Domain) -> np.ndarray:
@@ -70,6 +77,82 @@ def _typed_row_table(binning: cells_lib.CellBinning, f: torch.Tensor, dtype,
     ft = cells_lib.to_cell_major(binning, f.to(dtype), fill=fill)
     return torch.cat([ft, torch.full((1, ft.shape[1]), fill, dtype=ft.dtype,
                                      device=ft.device)])
+
+
+def _row_table(binning: cells_lib.CellBinning, f: torch.Tensor,
+               fill: float = 0.0) -> torch.Tensor:
+    """(C+1, cap) f32 cell-major table of a per-particle scalar field;
+    ``fill`` in empty slots and the sentinel row."""
+    return _typed_row_table(binning, f, torch.float32, fill)
+
+
+def pack_cells(binning: cells_lib.CellBinning, rel: torch.Tensor, *fields: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, list[torch.Tensor]]:
+    """Gather per-particle data into cell-major tables with the sentinel row.
+
+    Returns (rel_table (C+1, d, cap) in rel's dtype, occ (C+1, cap) f32,
+    one (C+1, cap) f32 table per field, zero in empty slots).
+    """
+    cap = binning.table.shape[1]
+    d = rel.shape[1]
+    dev = rel.device
+    occ = torch.cat([(binning.table >= 0).to(torch.float32),
+                     torch.zeros((1, cap), dtype=torch.float32, device=dev)])
+    rel_t = cells_lib.to_cell_major(binning, rel).transpose(1, 2)
+    rel_t = torch.cat([rel_t, torch.zeros((1, d, cap), dtype=rel.dtype, device=dev)])
+    return rel_t.contiguous(), occ, [_row_table(binning, f) for f in fields]
+
+
+def _nnps_args(domain: Domain, binning: cells_lib.CellBinning, rel: torch.Tensor, *fields):
+    rel_t, occ, tables = pack_cells(binning, rel, *fields)
+    kw = dict(weights=tuple(domain.cell_weights),
+              r_cell=nnps_lib.rcll_radius_cell_units(domain))
+    return rel_t, occ, tables, nb_with_sentinel(domain, rel.device), kw
+
+
+def rcll_adjacency_cells(domain: Domain, binning: cells_lib.CellBinning, rel: torch.Tensor,
+                         *, compute_dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense cell-blocked adjacency through K5.
+
+    Returns (adj (C+1, M, cap, cap) f32, counts per particle (N,) f32).
+    """
+    rel_t, occ, _, nb, kw = _nnps_args(domain, binning, rel)
+    adj, cnt = nnps_pairwise.rcll_adjacency(rel_t, occ, nb, compute_dtype=compute_dtype, **kw)
+    return adj, unpack_per_particle(cnt, binning)
+
+
+def rcll_neighbor_lists(domain: Domain, binning: cells_lib.CellBinning, rel: torch.Tensor,
+                        *, k: int, radius_cell: float | None = None, nnps_dtype=NNPS_STORE,
+                        compute_dtype=None) -> nnps_lib.NeighborList:
+    """Per-particle neighbor lists through K4, in the indexing of
+    ``binning.table``'s entries (original ids for ``bin_by_cell_id``).
+
+    ``rel`` is stored at ``nnps_dtype``; ``compute_dtype`` defaults to
+    fp32, with which fp16 storage decodes exactly. The lists hold the
+    first K hits in (neighbor cell, slot) order, the order of
+    :func:`nnps.rcll_neighbors`; ``count`` is the true count.
+    """
+    rel_t, occ, _, nb, kw = _nnps_args(domain, binning, rel.to(nnps_dtype))
+    if radius_cell is not None:
+        kw["r_cell"] = float(radius_cell)
+    ids_t = torch.cat([binning.table, torch.full((1, binning.table.shape[1]), -1,
+                                                 dtype=torch.int32, device=rel.device)])
+    ids_out, cnt = nnps_pairwise.rcll_neighbor_list_tables(
+        rel_t, occ, ids_t, nb, k_slots=k, compute_dtype=compute_dtype or torch.float32, **kw)
+    idx = unpack_per_particle(ids_out, binning)
+    count = unpack_per_particle(cnt, binning).to(torch.int32)
+    return nnps_lib.NeighborList(idx=torch.clamp(idx, min=0), mask=idx >= 0, count=count)
+
+
+def rcll_gradient_particles(domain: Domain, binning: cells_lib.CellBinning, rel: torch.Tensor,
+                            f: torch.Tensor, *, nnps_dtype=NNPS_STORE,
+                            eps: float = 1e-12) -> torch.Tensor:
+    """Per-particle A5 gradient (N, d) through the fused kernel K3."""
+    rel_t, occ, (f_t,), nb, kw = _nnps_args(domain, binning, rel, f)
+    num, den = sph_gradient.rcll_gradient(
+        rel_t, f_t, occ, nb, hc_phys=tuple(domain.cell_sizes), h=domain.h, dim=domain.dim,
+        nnps_dtype=nnps_dtype, **kw)
+    return unpack_per_particle((num / sph.guard_den(den, eps)).transpose(1, 2), binning)
 
 
 def mass_table(binning: cells_lib.CellBinning, m: torch.Tensor, records_dtype,

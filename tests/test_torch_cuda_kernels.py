@@ -1,6 +1,7 @@
-"""Kernel vs plain version on the card: K1 bit for bit, K2 by
-``rcll_force.check_against_plain``. Marked ``cuda``: a CUDA kernel has no CPU
-mode, so these skip without a GPU. The file imports no JAX; on a machine
+"""Kernel vs plain version on the card: K1, K4 and K5 bit for bit, K2 and
+K3 by their ``check_against_plain`` (derived rounding bound and normwise
+limit), and planted faults that those checks must catch. Marked
+``cuda``: a CUDA kernel has no CPU mode, so these skip without a GPU. The file imports no JAX; on a machine
 with the card and without JAX run it as
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
@@ -13,8 +14,10 @@ from repro_torch.core import cells as tcells
 from repro_torch.core import domain as td
 from repro_torch.core import rcll as trcll
 from repro_torch.kernels import cell_pack as tcp
+from repro_torch.kernels import nnps_pairwise as tnp
 from repro_torch.kernels import rcll_force as trf
-from test_torch_helpers import DAM, WCSPH, make_tiles, one_torch_thread  # noqa: F401
+from repro_torch.kernels import sph_gradient as tsg
+from test_torch_helpers import DAM, WCSPH, make_nnps_tiles, make_tiles, one_torch_thread  # noqa: F401
 
 
 @pytest.fixture
@@ -117,3 +120,86 @@ def test_wrapper_rejects_wrong_dtype_on_card(cuda_device):
     t["shift"] = t["shift"].to(torch.int32)
     with pytest.raises(ValueError, match="shift"):
         trf.rcll_force(*t.values(), **kw)
+
+
+# --------------------------------------------------------------------------
+# K3, K4, K5
+# --------------------------------------------------------------------------
+def _nnps_calls(tabs, kw, compute, dev, k_slots=48):
+    t = {k: x.to(dev) for k, x in tabs.items()}
+    nk = dict(weights=kw["weights"], r_cell=kw["r_cell"], compute_dtype=compute)
+    k4 = ((t["rel"], t["occ"], t["ids"], t["nb_ids"]), dict(nk, k_slots=k_slots))
+    k5 = ((t["rel"], t["occ"], t["nb_ids"]), nk)
+    return k4, k5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,n,storage,compute,periodic", [
+    (2, 20000, "fp16", torch.float32, False), (2, 20000, "fp16", torch.float16, True),
+    (2, 20000, "bf16", torch.float32, True), (2, 20000, "fp32", torch.float16, False),
+    (3, 12000, "fp16", torch.float16, True), (3, 12000, "fp32", torch.float32, False),
+])
+def test_nnps_kernels_bit_identical(cuda_device, dim, n, storage, compute, periodic):
+    tabs, kw = make_nnps_tiles(11 + dim, dim, n, storage, periodic)
+    k4, k5 = _nnps_calls(tabs, kw, compute, cuda_device)
+    before = (tnp.rcll_neighbor_list_tables.launches, tnp.rcll_adjacency.launches)
+    assert tnp.check_against_plain("K4", *k4)["hits"] > 0
+    assert tnp.check_against_plain("K5", *k5)["hits"] > 0
+    assert (tnp.rcll_neighbor_list_tables.launches, tnp.rcll_adjacency.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,n,storage,nnps_dtype", [
+    (2, 20000, "fp16", torch.float16), (2, 20000, "bf16", torch.float32),
+    (3, 12000, "fp16", torch.float16), (3, 12000, "fp32", torch.float32),
+])
+def test_gradient_kernel_within_rounding_bound(cuda_device, dim, n, storage, nnps_dtype):
+    tabs, kw = make_nnps_tiles(21 + dim, dim, n, storage, periodic=dim == 2)
+    t = {k: x.to(cuda_device) for k, x in tabs.items()}
+    before = tsg.rcll_gradient.launches
+    tsg.check_against_plain((t["rel"], t["f"], t["occ"], t["nb_ids"]),
+                            dict(kw, nnps_dtype=nnps_dtype))
+    assert tsg.rcll_gradient.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["r2_1pct", "self_pair"])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_nnps_checks_fail_a_planted_fault(cuda_device, monkeypatch, kernel, fault):
+    tabs, kw = make_nnps_tiles(5, 2, 20000, "fp16")
+    k4, k5 = _nnps_calls(tabs, kw, torch.float32, cuda_device)
+    params = tnp.kernel_params
+
+    def faulty(**k):
+        f, i = params(**k)
+        if fault == "r2_1pct":
+            f[3] *= 1.01
+        else:
+            i[0] = 1
+        return f, i
+
+    monkeypatch.setattr(tnp, "kernel_params", faulty)
+    with pytest.raises(AssertionError, match="disagrees"):
+        tnp.check_against_plain(kernel, *(k4 if kernel == "K4" else k5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["df_sign", "hc_1pct"])
+def test_gradient_check_fails_a_planted_fault(cuda_device, monkeypatch, fault):
+    tabs, kw = make_nnps_tiles(6, 2, 20000, "fp16")
+    t = {k: x.to(cuda_device) for k, x in tabs.items()}
+    params = tsg.kernel_params
+
+    def faulty(**k):
+        f = params(**k)
+        if fault == "df_sign":
+            f[9] = -1.0
+        else:
+            f[4] *= 1.01
+        return f
+
+    monkeypatch.setattr(tsg, "kernel_params", faulty)
+    with pytest.raises(AssertionError, match="disagrees"):
+        tsg.check_against_plain((t["rel"], t["f"], t["occ"], t["nb_ids"]),
+                                dict(kw, nnps_dtype=torch.float16))

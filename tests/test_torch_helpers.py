@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.core import cells as tcells
 from repro_torch.core import domain as td
+from repro_torch.core import nnps as tnnps
 from repro_torch.core import rcll as trcll
 from repro_torch.core import scheme as tsch
 from repro_torch.kernels import ops as tops
@@ -57,3 +58,28 @@ def make_tiles(seed, dim, scheme, records, n=None):
         rel=cm(rc.rel), shift=cm(shift), v=cm(v.to(rdt)), m=tab(m.to(rdt)),
         inv_rho=tab(1.0 / rho, 1.0 / sch.rho0), nb_ids=tops.nb_with_sentinel(dom, "cpu"),
     ), dict(hc_phys=tuple(dom.cell_sizes), h=dom.h, dim=dim, scheme=sch)
+
+
+STORAGE = {"fp16": torch.float16, "bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def make_nnps_tiles(seed, dim, n, storage="fp16", periodic=False, cell_factor=1.0):
+    """CPU tensors for one K3/K4/K5 call from a random cloud binned by
+    ``bin_by_cell_id``: a dict of (rel, f, occ, ids, nb_ids) tables and the
+    keyword arguments the kernels share (weights, r_cell, hc_phys, h, dim)."""
+    rng = np.random.default_rng(seed)
+    ds = (1.0 / n) ** (1.0 / dim)
+    dom = td.Domain(lo=(0.0,) * dim, hi=(1.0,) * dim, h=1.2 * ds, cell_factor=cell_factor,
+                    periodic=(periodic,) + (False,) * (dim - 1))
+    x = torch.as_tensor(rng.uniform(0, 1, (n, dim)).astype(np.float32))
+    st = trcll.init_state(dom, dom.normalize(x), STORAGE[storage])
+    cap = tcells.default_capacity(dom, n, safety=6.0)
+    b = tcells.bin_by_cell_id(dom, dom.flat_cell_id(st.cell_xy), st.cell_xy, cap)
+    assert int(b.overflow) == 0
+    f = torch.as_tensor((x[:, 0] ** 3).numpy() + rng.normal(size=n).astype(np.float32) * 0.01)
+    rel_t, occ, (f_t,) = tops.pack_cells(b, st.rel, f)
+    ids = torch.cat([b.table, torch.full((1, cap), -1, dtype=torch.int32)])
+    tabs = dict(rel=rel_t, f=f_t, occ=occ, ids=ids, nb_ids=tops.nb_with_sentinel(dom, "cpu"))
+    kw = dict(weights=tuple(dom.cell_weights), r_cell=tnnps.rcll_radius_cell_units(dom),
+              hc_phys=tuple(dom.cell_sizes), h=dom.h, dim=dim)
+    return tabs, kw
