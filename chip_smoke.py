@@ -2,6 +2,7 @@
 """Build and drive the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # all phases but the profile (6)
+    python3 chip_smoke.py --phases 1,9    # build + llama3.2-3b served (K6, K7)
     python3 chip_smoke.py --phases 1,8    # build + the 1M-particle NNPS path
     python3 chip_smoke.py --phases 1,2    # build + kernel checks only
     python3 chip_smoke.py --phases 6      # the profile
@@ -20,7 +21,11 @@ Phases (each prints its own lines and raises on failure):
      then K4 (neighbor lists) and K5 (adjacency) bit for bit and K3
      (fused A5 gradient) by ``sph_gradient.check_against_plain``, on
      random clouds binned by ``bin_by_cell_id``, for fp16/bf16/fp32
-     storage, fp32 and fp16 compute, periodic and not;
+     storage, fp32 and fp16 compute, periodic and not; then K6 (RCLL-KV
+     decode) at int8/fp16/bf16 residuals and K7 (flash prefill) at
+     bf16/fp32, causal and not, by their ``check_against_plain``
+     (``flash_attention.rounding_bound`` and ``NORMWISE_LIMIT``), on
+     random inputs with ragged lengths and the model's strided views;
   3. the main path at full size: ``Simulation.from_case("taylor_green",
      ds=1/1024)`` (N = 1,048,576, fp16 records) through ``run_timed``
      with observables every 10 steps; launch counts are zeroed just
@@ -40,7 +45,11 @@ Phases (each prints its own lines and raises on failure):
      phase 2 and phase 5 must each fail on each; in K4 alone and in K5
      alone (r_cell^2 1% larger, the self pair kept) and in K3 (the sign of f_j - f_i
      flipped, one cell edge 1% longer), phase 2's NNPS checks and
-     phase 8's checks must each fail on each;
+     phase 8's checks must each fail on each; in K6 (the length mask one
+     block short, the int8 divisor 127 -> 128) and in K7 (the causal mask
+     one column late), phase 2's K6/K7 checks, phase 9's checks at
+     captured inputs, phase 9's request check (over the prefill and 8
+     decode steps) and its logit gates alone must each fail on each;
   8. the NNPS path at the paper's 1M scale: ``gradient_test_particles(
      ds=1/1024)`` (N = 1,048,576) through ``rcll.init_state``,
      ``cells.bin_by_cell_id`` and ``ops.rcll_neighbor_lists`` (K4),
@@ -50,7 +59,18 @@ Phases (each prints its own lines and raises on failure):
      ``nnps.rcll_neighbors``, K5's counts equal to K4's, the gradient of
      x^3 within the interior RMS gate; each kernel held against its plain
      version and timed beside it and its bound; the paper's Table 2
-     wrong-determination counts against the fp64 truth (readings).
+     wrong-determination counts against the fp64 truth (readings);
+  9. the LM serving path: ``ServeRun("llama3.2-3b", smoke=False, batch 4,
+     prompt 1024, gen 160)`` at full width and depth with random weights
+     from seed 0, anchored (RCLL-KV) and dense; launch counts zeroed just
+     before and read just after each (K7 28 a prefill, K6 28 a decode
+     step); ``cache_bytes`` equal to the count from the shapes; K6 and K7
+     at the anchored run's captured inputs against their plain versions,
+     timed beside them, their bounds and (K7) ``scaled_dot_product_attention``;
+     the whole anchored request against the plain path, teacher-forced:
+     every logit finite and within ``transformer.logit_tolerance``, the
+     logits within ``LOGIT_NORMWISE_LIMIT`` normwise, and every K6 and K7
+     launch within its rounding bound of its plain version.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -60,6 +80,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -75,6 +96,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores, H100 SXM
+H100_BF16_TENSOR_OPS_PER_S = 989e12  # bf16 on the tensor cores, dense, H100 SXM
 
 
 def log(msg: str = "") -> None:
@@ -90,18 +112,22 @@ WRAPPERS = (
     ("sph_gradient", "rcll_gradient", "k3"),
     ("nnps_pairwise", "rcll_neighbor_list_tables", "k4"),
     ("nnps_pairwise", "rcll_adjacency", "k5"),
+    ("rcll_kv_attention", "rcll_kv_decode", "k6"),
+    ("flash_attention", "flash_attention", "k7"),
 )
 
 
 def _kernel_modules() -> dict:
-    from repro_torch.kernels import cell_pack, nnps_pairwise, rcll_force, sph_gradient
+    from repro_torch.kernels import (cell_pack, flash_attention, nnps_pairwise, rcll_force,
+                                     rcll_kv_attention, sph_gradient)
 
     return {"cell_pack": cell_pack, "rcll_force": rcll_force,
-            "sph_gradient": sph_gradient, "nnps_pairwise": nnps_pairwise}
+            "sph_gradient": sph_gradient, "nnps_pairwise": nnps_pairwise,
+            "rcll_kv_attention": rcll_kv_attention, "flash_attention": flash_attention}
 
 
 def wrapper(key: str):
-    """The kernel wrapper (and its launch counter) of K1..K5."""
+    """The kernel wrapper (and its launch counter) of K1..K7."""
     mod, name, _ = next(w for w in WRAPPERS if w[2] == key)
     return getattr(_kernel_modules()[mod], name)
 
@@ -142,6 +168,20 @@ def plain_versions():
         cell_pack.cell_tables, rcll_force.rcll_force = k1, k2
 
 
+@contextlib.contextmanager
+def plain_lm_versions():
+    """Route the LM path's attention through K6's and K7's plain versions."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import rcll_kv_attention as k6
+
+    saved = k6.rcll_kv_decode, k7.flash_attention
+    k6.rcll_kv_decode, k7.flash_attention = k6.rcll_kv_decode_ref, k7.flash_attention_ref
+    try:
+        yield
+    finally:
+        k6.rcll_kv_decode, k7.flash_attention = saved
+
+
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -154,6 +194,31 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def time_ms_graph(fn, reps: int = 50) -> float:
+    """Device time per call: ``reps`` calls captured in one CUDA graph and
+    replayed between CUDA events, so no host time sits between the
+    launches (a short kernel's wrapper can take longer than the kernel)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(3):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / (3 * reps)
 
 
 def k1_bytes(args, kw) -> int:
@@ -242,9 +307,12 @@ def k3_work(args, kw, neighbors: int):
     return pairs, ops, nbytes
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, bf16_tensor_ops: float = 0.0) -> tuple[float, str]:
+    """The least time (ms) of a function that moves ``nbytes`` and does
+    ``ops`` fp32 operations and ``bf16_tensor_ops`` operations that the
+    bf16 tensor cores can do exactly, and what bounds it."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_FP32_OPS_PER_S * 1e3
+    t_ops = (ops / H100_FP32_OPS_PER_S + bf16_tensor_ops / H100_BF16_TENSOR_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -354,6 +422,7 @@ def phase2_kernels() -> None:
             f"(F16 {f16}, F32 {f32}); {k2_summary(c2)}; "
             f"{shifted} particles with non-zero shift")
     phase2_nnps()
+    phase2_lm()
 
 
 STORAGE = {"fp16": torch.float16, "bf16": torch.bfloat16, "fp32": torch.float32}
@@ -635,6 +704,7 @@ def phase7_planted_faults() -> None:
             finally:
                 rcll_force.kernel_params = params
     missed += nnps_planted_faults()
+    missed += lm_planted_faults()
     if missed:
         raise AssertionError(f"planted faults not caught: {missed}")
 
@@ -687,9 +757,9 @@ def nnps_planted_faults() -> list:
             params = mod.kernel_params
             mod.kernel_params = faulty
             try:
-                check()
+                out = check()
                 missed.append((fault, name))
-                log(f"[7] {fault}: {name} PASSED: the fault was not caught")
+                log(f"[7] {fault}: {name} PASSED: the fault was not caught ({out})")
             except AssertionError as e:
                 log(f"[7] {fault}: {name} failed, as it must: {e}")
             finally:
@@ -862,6 +932,433 @@ def phase8_nnps_path(results: dict) -> None:
     results["nnps_kernels"] = rows
 
 
+# --------------------------------------------------------------------------
+# the LM serving path: K6 (RCLL-KV decode) and K7 (flash prefill)
+# --------------------------------------------------------------------------
+def k6_work(args, kw):
+    """(keys attended, fp32 operations, bf16 tensor-core operations (none),
+    bytes) of one K6 call on these inputs:
+    the blocks below each row's length are read once (residuals, anchors,
+    scales), q read and out, m, l written; per key below length, dequant
+    (2 per element of k and v) and the rep dot products and P.V updates."""
+    q, kr, ka, ks, vr, va, vs, length = args
+    b, h, dh = q.shape
+    _, hkv, nblk, blk, _ = kr.shape
+    ln = length.long().clamp(0, nblk * blk)
+    blocks = int(((ln + blk - 1) // blk).sum()) * hkv
+    keys = int(ln.sum()) * hkv
+    nbytes = (blocks * (2 * blk * dh * kr.element_size() + 4 * dh * 4)
+              + q.numel() * 4 + b * h * (dh + 2) * 4 + b * 4)
+    ops = keys * dh * (4 + 4 * (h // hkv))
+    return keys, ops, 0, nbytes
+
+
+def k7_work(args, kw):
+    """(pairs, fp32 operations, bf16 tensor-core operations, bytes) of one
+    K7 call: 4 Dh operations per (query, visible key) pair, q, k, v read
+    once and out written once. With bf16 inputs the q.k half is products
+    of bf16 values summed in fp32, exactly what the bf16 tensor cores
+    compute; the p.v half has fp32 weights and needs the fp32 rate."""
+    q, k, v = args
+    b, h, lq, dh = q.shape
+    lk = k.shape[2]
+    if kw.get("causal", True):
+        rows = np.arange(lq)
+        pairs = int(np.clip(rows + (lk - lq) + 1, 0, lk).sum())
+    else:
+        pairs = lq * lk
+    ops = 4 * dh * b * h * pairs
+    tensor_ops = ops // 2 if q.dtype == torch.bfloat16 else 0
+    nbytes = (q.numel() + k.numel() + v.numel()) * q.element_size() + b * h * lq * dh * 4
+    return pairs, ops - tensor_ops, tensor_ops, nbytes
+
+
+def phase2_lm() -> None:
+    """K6 and K7 against their plain versions on random inputs."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import rcll_kv_attention as k6
+
+    for i, (b, h, hkv, dh, nblk, blk, resid, lengths, heads_last) in enumerate([
+        (3, 24, 8, 128, 10, 128, torch.int8, [1153, 0, 1280], True),
+        (2, 8, 2, 64, 4, 128, torch.float16, [300, 37], False),
+        (4, 24, 8, 128, 9, 128, torch.bfloat16, [1, 129, 512, 1152], True),
+        (2, 6, 2, 16, 3, 256, torch.int8, [700, 256], False),
+    ]):
+        args = k6.random_inputs(300 + i, b, h, hkv, dh, nblk, blk, resid, lengths,
+                                heads_last=heads_last, device="cuda")
+        c = k6.check_against_plain(args, {})
+        log(f"[2] K6 B {b} H {h} Hkv {hkv} Dh {dh} nblk {nblk} blk {blk} "
+            f"{str(resid).split('.')[-1]} lengths {lengths} heads-last views {heads_last}: "
+            f"{lm_summary(c)}; m and l within the bound")
+    for i, (b, h, hkv, lq, lk, dh, dtype, causal, heads_last) in enumerate([
+        (2, 24, 8, 1024, 1024, 128, torch.bfloat16, True, True),
+        (2, 8, 2, 300, 300, 64, torch.float32, True, False),
+        (1, 6, 2, 333, 333, 16, torch.bfloat16, True, True),
+        (2, 8, 2, 200, 333, 128, torch.bfloat16, False, False),
+        (2, 4, 4, 100, 300, 32, torch.float32, False, True),
+        (1, 8, 2, 100, 300, 128, torch.float32, True, False),
+    ]):
+        args = k7.random_inputs(400 + i, b, h, hkv, lq, lk, dh, dtype, heads_last=heads_last,
+                                device="cuda")
+        c = k7.check_against_plain(args, {"causal": causal})
+        log(f"[2] K7 B {b} H {h} Hkv {hkv} Lq {lq} Lk {lk} Dh {dh} "
+            f"{str(dtype).split('.')[-1]} causal {causal} heads-last views {heads_last}: "
+            f"{lm_summary(c)}")
+
+
+def lm_summary(c: dict) -> str:
+    from repro_torch.kernels import flash_attention as k7
+
+    return (f"max|err| {c['max_abs_err']:.3e}, max err/bound {c['max_ratio']:.3e} "
+            f"(bound: 4 (E + (n + 8) u)(A + |out|)), normwise {c['normwise']:.3e} "
+            f"(limit {k7.NORMWISE_LIMIT:g})")
+
+
+#: Phase 9's request: llama3.2-3b at full width and depth, one chip.
+LM_ARCH = "llama3.2-3b"
+LM_REQUEST = dict(batch=4, prompt_len=1024, gen=160, seed=0)
+
+
+def lm_weights(cfg):
+    """The request's weights (seed 0, as ServeRun draws them), bf16 copy."""
+    from repro_torch.models import transformer
+
+    with torch.inference_mode():
+        params = transformer.init_params(
+            torch.Generator(device="cuda").manual_seed(LM_REQUEST["seed"]), cfg)
+        return transformer.compute_weights(params)
+
+
+def lm_prompt(cfg) -> torch.Tensor:
+    rng = np.random.default_rng(LM_REQUEST["seed"])  # ServeRun's prompt
+    return torch.as_tensor(rng.integers(0, cfg.vocab, (LM_REQUEST["batch"],
+                                                      LM_REQUEST["prompt_len"])),
+                           dtype=torch.int32, device="cuda")
+
+
+def lm_teacher_forced(weights, cfg, prompt, max_len, steps, tokens=None):
+    """Prefill and ``steps`` decode steps, greedy or fed ``tokens``
+    (B, steps); returns the logits of every step (steps + 1, B, vocab)
+    and the tokens fed."""
+    from repro_torch.models import transformer
+
+    with torch.inference_mode():
+        lg, cache = transformer.prefill(weights, prompt, cfg, max_len)
+        out = [lg[:, -1]]
+        cur = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        fed = []
+        for i in range(steps):
+            if tokens is not None:
+                cur = tokens[:, i:i + 1]
+            fed.append(cur)
+            lg2, cache = transformer.decode_step(weights, cur, cache, cfg)
+            out.append(lg2[:, 0])
+            cur = torch.argmax(lg2, dim=-1).to(torch.int32)
+    return torch.stack(out), torch.cat(fed, dim=1)
+
+
+@contextlib.contextmanager
+def every_launch_checked(record: dict):
+    """Hold every K6 and K7 launch against its plain version on the same
+    inputs (``check_against_plain`` on the launch's own output); ``record``
+    collects the count and the worst error-over-bound and normwise."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import rcll_kv_attention as k6
+
+    saved = k6.rcll_kv_decode, k7.flash_attention
+    record.update(k6=0, k7=0, max_ratio=0.0, normwise=0.0)
+
+    def note(key, c):
+        record[key] += 1
+        record["max_ratio"] = max(record["max_ratio"], c["max_ratio"])
+        record["normwise"] = max(record["normwise"], c["normwise"])
+
+    def k6_checked(*a, return_stats=False, **kw):
+        stats = saved[0](*a, return_stats=True, **kw)
+        note("k6", k6.check_against_plain(a, kw, stats=stats))
+        return stats if return_stats else stats[0]
+
+    def k7_checked(*a, **kw):
+        out = saved[1](*a, **kw)
+        note("k7", k7.check_against_plain(a, kw, out_k=out))
+        return out
+
+    k6.rcll_kv_decode, k7.flash_attention = k6_checked, k7_checked
+    try:
+        yield record
+    finally:
+        k6.rcll_kv_decode, k7.flash_attention = saved
+
+
+#: Limit on the request's normwise logit difference, kernel path against
+#: plain path (the largest over its steps of ||dlogits|| / ||logits||),
+#: the geometric mean of two readings on the card (PERF.md): the clean
+#: kernel path's 1.66e-2 and the int8 divisor 127 -> 128's 2.27e-2,
+#: which the elementwise tolerance alone lets pass.
+LOGIT_NORMWISE_LIMIT = 1.95e-2
+
+
+def lm_request_check(weights, cfg, steps: int, store: dict | None = None,
+                     per_launch: bool = True) -> dict:
+    """The kernel path against the plain path of one anchored request on
+    the card, teacher-forced with the kernel path's tokens: every logit
+    finite and within ``transformer.logit_tolerance`` (the CPU slice
+    test's), the logits within :data:`LOGIT_NORMWISE_LIMIT` normwise and,
+    with ``per_launch``, every K6 and K7 launch of the kernel path within
+    its rounding bound of its plain version on the same inputs. Raises
+    AssertionError."""
+    from repro_torch.models import transformer
+
+    prompt = lm_prompt(cfg)
+    max_len = -(-(LM_REQUEST["prompt_len"] + LM_REQUEST["gen"]) // cfg.kv_block) * cfg.kv_block
+    launches: dict = {"k6": 0, "k7": 0, "max_ratio": 0.0, "normwise": 0.0}
+    checked = every_launch_checked(launches) if per_launch else contextlib.nullcontext()
+    with capture_kernel_inputs(store if store is not None else {}), checked:
+        lk, toks = lm_teacher_forced(weights, cfg, prompt, max_len, steps)
+    with plain_lm_versions():
+        lp, _ = lm_teacher_forced(weights, cfg, prompt, max_len, steps, tokens=toks)
+    if not bool(torch.isfinite(lk).all()):
+        raise AssertionError("the kernel path's logits are not finite")
+    tol = transformer.logit_tolerance(lp)
+    diff = (lk - lp).abs()
+    ratio = float((diff / tol).max())
+    normwise = float((torch.linalg.vector_norm(lk - lp, dim=(1, 2))
+                      / torch.linalg.vector_norm(lp, dim=(1, 2))).max())
+    res = {"max_abs_diff": float(diff.max()), "max_ratio": ratio, "steps": steps,
+           "tol_max": float(tol.max()), "normwise": normwise,
+           "mean_ratio": float((diff / tol).mean()), "launches": launches}
+    if ratio > 1.0 or normwise > LOGIT_NORMWISE_LIMIT:
+        raise AssertionError(f"kernel path vs plain path: max |dlogit| {res['max_abs_diff']:.4g}"
+                             f" is {ratio:.3g} x the tolerance, normwise {normwise:.4g} (limit "
+                             f"{LOGIT_NORMWISE_LIMIT:g})")
+    return res
+
+
+def lm_kernel_checks(store: dict) -> dict:
+    """K6 and K7 against their plain versions at one layer's captured inputs."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import rcll_kv_attention as k6
+
+    return {"k6": k6.check_against_plain(*store["k6"]),
+            "k7": k7.check_against_plain(*store["k7"])}
+
+
+def expected_cache_bytes(cfg, batch: int, max_len: int, mode: str) -> int:
+    """The KV cache's bytes counted from the shapes (serve.py's max_len)."""
+    layers, hkv, dh = cfg.n_layers, cfg.n_kv, cfg.head_dim
+    length = layers * batch * 4
+    if mode == "anchored":
+        blk = cfg.kv_block
+        nblk = max_len // blk
+        return (2 * layers * batch * nblk * blk * hkv * dh  # int8 residuals
+                + 4 * layers * batch * nblk * hkv * dh * 4  # anchors and scales
+                + 2 * layers * batch * blk * hkv * dh * 4 + length)  # fp32 tails
+    return 2 * layers * batch * max_len * hkv * dh * 2 + length
+
+
+def phase9_serving(results: dict) -> None:
+    """llama3.2-3b served at full width and depth through ServeRun, in
+    both KV modes; then K6 and K7 at the anchored run's captured inputs
+    against their plain versions, timed beside them, their bounds and the
+    library call, and the whole request against the plain path."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import rcll_kv_attention as k6
+    from repro_torch.launch.serve import ServeRun
+    from repro_torch.models import registry, transformer
+
+    cfg = registry.get_config(LM_ARCH)
+    K6, K7 = wrapper("k6"), wrapper("k7")
+    launches, store = {}, {}
+    for mode in ("anchored", "dense"):
+        run = ServeRun(arch=LM_ARCH, smoke=False, kv_mode=mode, **LM_REQUEST)
+        torch.cuda.reset_peak_memory_stats()
+        K6.launches = 0
+        K7.launches = 0
+        with capture_kernel_inputs(store if mode == "anchored" else {}):
+            out = run.run()
+        torch.cuda.synchronize()
+        launches[mode] = {"k6": K6.launches, "k7": K7.launches}
+        total = LM_REQUEST["prompt_len"] + LM_REQUEST["gen"]
+        max_len = -(-total // cfg.kv_block) * cfg.kv_block if mode == "anchored" else total
+        want = expected_cache_bytes(cfg, LM_REQUEST["batch"], max_len, mode)
+        steps = LM_REQUEST["gen"]  # the off-clock warm-up and gen - 1 timed steps
+        log(f"[9] {LM_ARCH} kv {mode}: B {LM_REQUEST['batch']} prompt {LM_REQUEST['prompt_len']}"
+            f" gen {LM_REQUEST['gen']} max_len {max_len}: prefill "
+            f"{1e3 * out['t_prefill_s']:.3f} ms, decode {out['decode_tok_s']:.3f} tok/s "
+            f"({1e3 * out['t_decode_s']:.3f} ms for {LM_REQUEST['gen'] - 1} steps); cache_bytes "
+            f"{out['cache_bytes']} (from the shapes {want}); launches K6 {K6.launches}, "
+            f"K7 {K7.launches}; max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
+            f"tokens[0, :12] {out['tokens'][0, :12].tolist()}")
+        want_launches = {"k6": cfg.n_layers * steps if mode == "anchored" else 0,
+                         "k7": cfg.n_layers}
+        if out["cache_bytes"] != want:
+            raise AssertionError(f"{mode}: cache_bytes {out['cache_bytes']} != {want}")
+        if launches[mode] != want_launches:
+            raise AssertionError(f"{mode}: launches {launches[mode]}, expected {want_launches}")
+        if out["tokens"].shape != (LM_REQUEST["batch"], LM_REQUEST["gen"]):
+            raise AssertionError(f"{mode}: tokens of shape {out['tokens'].shape}")
+        del out
+
+    c = lm_kernel_checks(store)
+    log(f"[9] K6 at the last decode step's captured inputs (layer {cfg.n_layers - 1}): "
+        f"{lm_summary(c['k6'])}")
+    log(f"[9] K7 at the prefill's captured inputs (layer {cfg.n_layers - 1}): "
+        f"{lm_summary(c['k7'])}")
+
+    rows = []
+    for key, name, src, rep, work, plain, lib in (
+        ("k6", "rcll_kv_decode", "rcll_kv_attention.cu",
+         "src/repro/kernels/rcll_kv_attention.py:98", k6_work, k6.rcll_kv_decode_ref, None),
+        ("k7", "flash_attention", "flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:88", k7_work, k7.flash_attention_ref,
+         _sdpa_library),
+    ):
+        a, kw = store[key]
+        fn = wrapper(key)
+        ms = time_ms_graph(lambda: fn(*a, **kw))
+        eager_ms = time_ms(lambda: fn(*a, **kw), reps=50)
+        plain_ms = time_ms(lambda: plain(*a, **kw), reps=5, warmup=1)
+        lib_ms = lib(a, kw) if lib else None
+        n, ops_n, tensor_ops, nbytes = work(a, kw)
+        bms, by = bound(nbytes, ops_n, tensor_ops)
+        extra = ""
+        if key == "k7":
+            extra = (f"; were every operation on the bf16 tensor cores, "
+                     f"{(ops_n + tensor_ops) / H100_BF16_TENSOR_OPS_PER_S * 1e3:.4f} ms, the bytes "
+                     f"{nbytes / H100_BYTES_PER_S * 1e3:.4f} ms; library "
+                     f"(scaled_dot_product_attention, fp32, causal, GQA) {lib_ms:.4f} ms")
+        log(f"[9] {key.upper()} {name} {tuple(a[0].shape)} {a[1].dtype}: {ms:.4f} ms a launch "
+            f"in a CUDA graph ({eager_ms:.4f} ms launched one by one from Python, the wrapper "
+            f"included; plain {plain_ms:.4f} ms), bound {bms:.4f} ms by {by} ({n} "
+            f"{'keys' if key == 'k6' else 'pairs'}; {ops_n:.4g} ops at fp32 67 TFLOP/s, "
+            f"{tensor_ops:.4g} at bf16 tensor-core 989 TFLOP/s; {nbytes} bytes at 3.35 TB/s)"
+            f"{extra}")
+        rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+                     "replaces": rep, "launches": launches["anchored"][key],
+                     "max_abs_err": c[key]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    results["lm_kernels"] = rows
+    del store
+
+    weights = lm_weights(cfg)
+    cfg_a = dataclasses.replace(cfg, kv_mode="anchored")
+    t0 = time.perf_counter()
+    r = lm_request_check(weights, cfg_a, steps=LM_REQUEST["gen"] - 1)
+    log(f"[9] kernel path vs plain path, anchored, teacher-forced over the prefill and "
+        f"{r['steps']} decode steps: all logits finite; max |dlogit| {r['max_abs_diff']:.6g}, "
+        f"normwise {r['normwise']:.4g} (limit {LOGIT_NORMWISE_LIMIT:g}), mean |dlogit| / tolerance {r['mean_ratio']:.4g}, max "
+        f"ratio to the tolerance {r['max_ratio']:.4g} (tolerance {transformer.LOGIT_TOL_ULPS} "
+        f"bf16 ulps of the row's largest |logit|, at most {r['tol_max']:.4g}); every launch "
+        f"held against its plain version ({r['launches']['k6']} K6, {r['launches']['k7']} K7): "
+        f"max err/bound {r['launches']['max_ratio']:.3e}, max normwise "
+        f"{r['launches']['normwise']:.3e}; {time.perf_counter() - t0:.1f} s")
+    lm_profile(weights, cfg_a)
+
+
+def lm_profile(weights, cfg, steps: int = 4) -> None:
+    """Where an anchored decode step's time goes: a ``torch.profiler``
+    window over ``steps`` steps after the prefill and one warm step, with
+    device time by kernel and the device's busy share; and the prefill's
+    K7 share from the same kind of window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer
+
+    prompt = lm_prompt(cfg)
+    max_len = -(-(LM_REQUEST["prompt_len"] + LM_REQUEST["gen"]) // cfg.kv_block) * cfg.kv_block
+    with torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lg, cache = transformer.prefill(weights, prompt, cfg, max_len)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _log_profile("prefill", prof, wall, 1)
+        cur = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
+        lg, cache = transformer.decode_step(weights, cur, cache, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                cur = torch.argmax(lg, dim=-1).to(torch.int32)
+                lg, cache = transformer.decode_step(weights, cur, cache, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _log_profile("anchored decode step", prof, wall, steps)
+
+
+def device_events(prof) -> list:
+    """The device-side (kernel and memcpy) events of a ``torch.profiler``
+    window. The CPU-side ops also carry their kernels' device time, so a
+    sum over all events would count it twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def _log_profile(what: str, prof, wall: float, n: int) -> None:
+    events = device_events(prof)
+    device_us = sum(e.self_device_time_total for e in events)
+    kernels = sum(e.count for e in events)
+    log(f"[9] profile, {what}: wall {1e3 * wall / n:.3f} ms, device time "
+        f"{device_us / 1e3 / n:.3f} ms, device busy share {device_us / 1e6 / wall:.3f}, "
+        f"{kernels // n} device ops")
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    for e in top:
+        if e.self_device_time_total > 0:
+            log(f"[9]   {e.self_device_time_total / 1e3 / n:9.4f} ms {e.count // n:5d} calls  "
+                f"{e.key[:90]}")
+
+
+def _sdpa_library(a, kw) -> float:
+    """One PyTorch call computing K7's function on the same inputs, in fp32."""
+    q, k, v = (t.float() for t in a)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return time_ms(lambda: sdpa(q, k, v, is_causal=kw.get("causal", True), enable_gqa=True),
+                   reps=20)
+
+
+def lm_planted_faults() -> list:
+    """Faults planted in K6 (the length mask one block short; the int8
+    divisor 127 -> 128) and in K7 (the causal mask one column late)
+    through ``planted_params``: phase 2's K6/K7 checks, phase 9's checks
+    at captured inputs, phase 9's request check (over the prefill and 8
+    decode steps) and that check's logit gates alone (no per-launch
+    gate) must each fail on each. Returns the (fault, check) pairs that
+    passed."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import rcll_kv_attention as k6
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(registry.get_config(LM_ARCH), kv_mode="anchored")
+    weights = lm_weights(cfg)
+    store: dict = {}
+    clean = lm_request_check(weights, cfg, steps=8, store=store)  # inputs to plant into
+    log(f"[7] clean request over 8 decode steps: max |dlogit| / tolerance "
+        f"{clean['max_ratio']:.4g}, normwise {clean['normwise']:.4g}")
+
+    checks = (("phase 2 K6/K7", phase2_lm),
+              ("phase 9 K6/K7 at captured inputs", lambda: lm_kernel_checks(store)),
+              ("phase 9 request vs plain path", lambda: lm_request_check(weights, cfg, steps=8)),
+              ("phase 9 request, logit gates alone",
+               lambda: lm_request_check(weights, cfg, steps=8, per_launch=False)))
+    missed = []
+    for mod in (k6, k7):
+        for fault in mod.FAULTS:
+            label = f"{'K6' if mod is k6 else 'K7'}:{fault}"
+            for name, check in checks:
+                params = mod.kernel_params
+                mod.kernel_params = mod.planted_params(fault)
+                try:
+                    out = check()
+                    missed.append((label, name))
+                    log(f"[7] {label}: {name} PASSED: the fault was not caught ({out})")
+                except AssertionError as e:
+                    log(f"[7] {label}: {name} failed, as it must: {e}")
+                finally:
+                    mod.kernel_params = params
+    return missed
+
+
 def phase6_profile(nsteps: int = 10) -> None:
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
@@ -895,7 +1392,7 @@ def phase6_profile(nsteps: int = 10) -> None:
         carry = solver.run_persistent(cfg, carry, nsteps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
+    events = device_events(prof)
     device_us = sum(e.self_device_time_total for e in events)
     log(f"[6] profiled {nsteps} steps: wall {1e3 * wall / nsteps:.3f} ms/step, device "
         f"time {device_us / 1e3 / nsteps:.3f} ms/step, device busy share "
@@ -909,7 +1406,7 @@ def phase6_profile(nsteps: int = 10) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9",
                     help="comma-separated phases to run (default: all but 6)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
@@ -936,10 +1433,13 @@ def main() -> int:
         phase7_planted_faults()
     if 8 in phases:
         phase8_nnps_path(results)
+    if 9 in phases:
+        phase9_serving(results)
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
     if 1 not in phases:
         log(gpu_line())
-    log(json.dumps({"kernels": results.get("kernels", []) + results.get("nnps_kernels", [])}))
+    log(json.dumps({"kernels": results.get("kernels", []) + results.get("nnps_kernels", [])
+                    + results.get("lm_kernels", [])}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,14 @@ The NNPS path's inputs and outputs travel the same way, keyed by their
 JAX field names (:func:`fields_to_numpy` / :func:`fields_from_numpy`):
 ``RCLLState`` (cell_xy, rel), ``CellBinning`` (table, counts, cell_id,
 cell_xy, order, overflow) and ``NeighborList`` (idx, mask, count, trunc).
+
+The LM substrate's parameters and KV caches travel the same way:
+:func:`lm_params_from_numpy` takes JAX's parameter paths
+(``embed_tokens.embed``, ``layers.attn.wq`` stacked (n_layers, ...),
+``final_norm.norm_w``), and :func:`kv_cache_from_numpy` /
+:func:`kv_cache_to_numpy` a ``DenseKVCache`` or ``AnchoredKVCache`` in
+JAX's layout, every array in its own dtype (int8/fp16 residual bits
+unchanged; bf16 exactly, as fp32 on the numpy side).
 """
 from __future__ import annotations
 
@@ -117,3 +125,34 @@ def fields_to_numpy(value: NamedTuple) -> dict[str, np.ndarray]:
         t = t.detach().cpu()
         out[key] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return out
+
+
+def _array_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A tensor of the array's own dtype (JAX's bf16 arrays exactly)."""
+    if arr.dtype.name == "bfloat16":
+        return _float_tensor(arr, device)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+
+def lm_params_from_numpy(tree: dict[str, np.ndarray], device) -> dict:
+    """The port's LM parameters (``models.transformer``'s nested dict) on
+    ``device`` from numpy arrays keyed by JAX parameter path."""
+    out: dict = {}
+    for path, arr in tree.items():
+        *parents, leaf = path.split(".")
+        node = out
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = _array_tensor(np.asarray(arr), device)
+    return out
+
+
+def kv_cache_from_numpy(cls: type, fields: dict, device) -> NamedTuple:
+    """A ``DenseKVCache`` or ``AnchoredKVCache`` (``cls``) on ``device``
+    from numpy arrays keyed by field name, stacked (n_layers, ...) or not."""
+    return cls(**{key: _array_tensor(np.asarray(fields[key]), device) for key in cls._fields})
+
+
+def kv_cache_to_numpy(cache: NamedTuple) -> dict[str, np.ndarray]:
+    """Numpy arrays keyed by field name (bf16 as fp32, exactly)."""
+    return fields_to_numpy(cache)

@@ -1,0 +1,109 @@
+"""Shared building blocks: norms, RoPE, the SwiGLU MLP, embeddings.
+
+Port of ``repro.models.layers`` (the parts the dense family uses).
+Functional style as there: ``init_*(gen, ...) -> params dict`` and pure
+apply functions. Parameters are fp32 masters; each apply function casts
+a weight to the compute dtype at use (``Tensor.to`` is free when the
+caller passes the one bf16 copy that ``transformer.compute_weights``
+makes). Normalization and softmax accumulate in fp32. JAX's sharding
+constraints (``pt.act*``) are the identity on one device and are dropped.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+DEFAULT_COMPUTE = torch.bfloat16
+
+#: Standard-normal CDF at the truncation points -3 and 3.
+_PHI_LO = 0.5 * (1.0 + math.erf(-3.0 / math.sqrt(2.0)))
+_PHI_HI = 0.5 * (1.0 + math.erf(3.0 / math.sqrt(2.0)))
+
+
+def truncated_normal(gen: torch.Generator, shape, scale: float, dtype=torch.float32):
+    """``scale`` times a standard normal truncated to [-3, 3], drawn by
+    inverse-CDF sampling from ``gen`` on its device (JAX's
+    ``truncated_normal(key, -3, 3)``; the two give different numbers
+    from the same seed)."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    out.uniform_(2.0 * _PHI_LO - 1.0, 2.0 * _PHI_HI - 1.0, generator=gen)
+    return out.erfinv_().mul_(math.sqrt(2.0)).clamp_(-3.0, 3.0).mul_(scale)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int):
+    return truncated_normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in))
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+def init_rmsnorm(d: int, device) -> dict:
+    return {"norm_w": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p["norm_w"]
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE (half-split, not interleaved; fp32 angles)
+# --------------------------------------------------------------------------
+def rope_freqs(d_head: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., L, H, Dh) or (..., L, Dh); positions: (..., L)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (dh/2,)
+    ang = positions[..., None].float() * freqs  # (..., L, dh/2)
+    if x.dim() == ang.dim() + 1:  # head axis present
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
+    return {
+        "w_gate": dense_init(gen, d_model, d_ff),
+        "w_up": dense_init(gen, d_model, d_ff),
+        "w_down": dense_init(gen, d_ff, d_model),
+    }
+
+
+def swiglu(p: dict, x: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch.Tensor:
+    xc = x.to(compute_dtype)
+    g = xc @ p["w_gate"].to(compute_dtype)
+    u = xc @ p["w_up"].to(compute_dtype)
+    h = torch.nn.functional.silu(g.float()).to(compute_dtype) * u
+    return h @ p["w_down"].to(compute_dtype)
+
+
+# --------------------------------------------------------------------------
+# Embedding / logits
+# --------------------------------------------------------------------------
+def init_embed(gen: torch.Generator, vocab: int, d_model: int, tied: bool = True) -> dict:
+    # 1/sqrt(d) scale keeps tied-unembedding logits O(1) at init.
+    p = {"embed": truncated_normal(gen, (vocab, d_model), 1.0 / math.sqrt(d_model))}
+    if not tied:
+        p["unembed"] = truncated_normal(gen, (vocab, d_model), 1.0 / math.sqrt(d_model))
+    return p
+
+
+def embed(p: dict, tokens: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch.Tensor:
+    # gather, then cast: the same values as JAX's cast-then-take
+    return p["embed"][tokens.long()].to(compute_dtype)
+
+
+def logits(p: dict, x: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch.Tensor:
+    w = p.get("unembed", p["embed"]).to(compute_dtype)
+    return (x.to(compute_dtype) @ w.T).float()

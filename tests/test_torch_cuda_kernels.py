@@ -1,6 +1,6 @@
-"""Kernel vs plain version on the card: K1, K4 and K5 bit for bit, K2 and
-K3 by their ``check_against_plain`` (derived rounding bound and normwise
-limit), and planted faults that those checks must catch. Marked
+"""Kernel vs plain version on the card: K1, K4 and K5 bit for bit, K2, K3,
+K6 and K7 by their ``check_against_plain`` (derived rounding bound and
+normwise limit), and planted faults that those checks must catch. Marked
 ``cuda``: a CUDA kernel has no CPU mode, so these skip without a GPU. The file imports no JAX; on a machine
 with the card and without JAX run it as
 
@@ -14,10 +14,13 @@ from repro_torch.core import cells as tcells
 from repro_torch.core import domain as td
 from repro_torch.core import rcll as trcll
 from repro_torch.kernels import cell_pack as tcp
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import nnps_pairwise as tnp
 from repro_torch.kernels import rcll_force as trf
+from repro_torch.kernels import rcll_kv_attention as tkv
 from repro_torch.kernels import sph_gradient as tsg
-from test_torch_helpers import DAM, WCSPH, make_nnps_tiles, make_tiles, one_torch_thread  # noqa: F401
+from test_torch_helpers import (DAM, WCSPH, make_nnps_tiles, make_tiles,  # noqa: F401
+                                one_torch_thread)
 
 
 @pytest.fixture
@@ -203,3 +206,84 @@ def test_gradient_check_fails_a_planted_fault(cuda_device, monkeypatch, fault):
     with pytest.raises(AssertionError, match="disagrees"):
         tsg.check_against_plain((t["rel"], t["f"], t["occ"], t["nb_ids"]),
                                 dict(kw, nnps_dtype=torch.float16))
+
+
+# --------------------------------------------------------------------------
+# K6 (RCLL-KV decode) and K7 (flash prefill)
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("resid,heads_last", [(torch.int8, True), (torch.float16, False),
+                                              (torch.bfloat16, True)])
+def test_kv_decode_kernel_within_rounding_bound(cuda_device, resid, heads_last):
+    args = tkv.random_inputs(11, 3, 24, 8, 128, 5, 128, resid, [1, 513, 640],
+                            heads_last=heads_last, device=cuda_device)
+    before = tkv.rcll_kv_decode.launches
+    tkv.check_against_plain(args, {})
+    assert tkv.rcll_kv_decode.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,causal,lq,lk,dh,heads_last", [
+    (torch.bfloat16, True, 300, 300, 128, True), (torch.float32, True, 77, 200, 64, False),
+    (torch.bfloat16, False, 129, 65, 16, False), (torch.float32, False, 64, 64, 32, True)])
+def test_flash_kernel_within_rounding_bound(cuda_device, dtype, causal, lq, lk, dh, heads_last):
+    args = tfa.random_inputs(12, 2, 8, 2, lq, lk, dh, dtype, heads_last=heads_last,
+                            device=cuda_device)
+    before = tfa.flash_attention.launches
+    tfa.check_against_plain(args, {"causal": causal})
+    assert tfa.flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", tkv.FAULTS + tfa.FAULTS)
+def test_lm_checks_fail_a_planted_fault(cuda_device, monkeypatch, fault):
+    mod = tkv if fault in tkv.FAULTS else tfa
+    monkeypatch.setattr(mod, "kernel_params", mod.planted_params(fault))
+    with pytest.raises(AssertionError, match="disagree"):
+        if mod is tkv:
+            tkv.check_against_plain(
+                tkv.random_inputs(13, 2, 8, 2, 64, 3, 128, torch.int8, [300, 384],
+                                  device=cuda_device), {})
+        else:
+            tfa.check_against_plain(
+                tfa.random_inputs(14, 1, 8, 2, 200, 200, 64, torch.bfloat16, device=cuda_device),
+                {"causal": True})
+
+
+@pytest.mark.cuda
+def test_smoke_model_serves_through_both_kernels(cuda_device):
+    from repro_torch.launch.serve import ServeRun
+
+    k6_0, k7_0 = tkv.rcll_kv_decode.launches, tfa.flash_attention.launches
+    out = ServeRun(arch="llama3.2-3b", smoke=True, batch=2, prompt_len=128, gen=6,
+                   kv_mode="anchored", device="cuda").run()
+    assert out["tokens"].shape == (2, 6)
+    assert tfa.flash_attention.launches - k7_0 == 2  # one per layer of the prefill
+    assert tkv.rcll_kv_decode.launches - k6_0 == 2 * 6  # per layer, warm-up + 5 steps
+
+
+@pytest.mark.parametrize("which,scale", [("K6", 1.0), ("K6", 1.0 + 1e-4), ("K7", 1.0),
+                                         ("K7", 1.0 + 1e-4)])
+def test_lm_checks_flag_a_wrong_output(monkeypatch, which, scale):
+    """The checkers themselves, on the CPU: the plain version passes
+    against itself, and an output 0.01% off fails."""
+    if which == "K6":
+        args = tkv.random_inputs(15, 2, 8, 2, 64, 3, 128, torch.int8, [300, 384])
+        ref = tkv.rcll_kv_decode_ref
+
+        def scaled(*a, **k):
+            out = ref(*a, **k)
+            return (out[0] * scale,) + tuple(out[1:]) if k.get("return_stats") else out * scale
+
+        monkeypatch.setattr(tkv, "rcll_kv_decode", scaled)
+        check = lambda: tkv.check_against_plain(args, {})
+    else:
+        args = tfa.random_inputs(16, 1, 8, 2, 100, 100, 32, torch.float32)
+        ref = tfa.flash_attention_ref
+        monkeypatch.setattr(tfa, "flash_attention", lambda *a, **k: ref(*a, **k) * scale)
+        check = lambda: tfa.check_against_plain(args, {"causal": True})
+    if scale == 1.0:
+        assert check()["max_abs_err"] == 0.0
+    else:
+        with pytest.raises(AssertionError, match="disagrees"):
+            check()
