@@ -41,8 +41,10 @@ Phases (each prints its own lines and raises on failure):
      goes: host-timed decision / rebuild / physics split with a
      synchronize after each, and a ``torch.profiler`` window with device
      time by kernel and the device's busy share;
-  7. planted faults: in K2, the K2 check at the main path's inputs,
-     phase 2 and phase 5 must each fail on each; in K4 alone and in K5
+  7. planted faults: in K2 (the Morris term dropped, the EOS constant 1%
+     off, the last occupied slot of each neighbor tile skipped), the K2
+     check at the main path's inputs, phase 2 and phase 5 must each fail
+     on each; in K4 alone and in K5
      alone (r_cell^2 1% larger, the self pair kept) and in K3 (the sign of f_j - f_i
      flipped, one cell edge 1% longer), phase 2's NNPS checks and
      phase 8's checks must each fail on each; in K6 (the length mask one
@@ -246,18 +248,56 @@ def k2_ops_per_pair(dim: int, scheme) -> int:
 
 
 def k2_work(args, kw):
-    """(needed pairs, operations, bytes) of one K2 call on these inputs:
-    pairs of occupied slots in non-sentinel neighbor cells only."""
+    """(occupied pairs, pairs inside the support, operations, bytes) of one
+    K2 call on these inputs. Pairs of occupied slots in non-sentinel
+    neighbor cells need the Eq. (7) decode and the support test; only those
+    inside the support (r < 2h, where dW != 0) need the pair terms."""
     rel, shift, v, m, inv_rho, nb_ids = args
     c1, d, cap = rel.shape
     occ = (m != 0).sum(dim=1).to(torch.int64)  # empty slots carry m = 0
     occ[-1] = 0
     pairs = int((occ[:, None] * occ[nb_ids.long()]).sum())
-    ops = pairs * k2_ops_per_pair(kw["dim"], kw["scheme"])
+    inside = k2_support_pairs(args, kw)
+    decode = 6 * kw["dim"]  # (6d - 1) decode operations and the test
+    ops = inside * k2_ops_per_pair(kw["dim"], kw["scheme"]) + (pairs - inside) * decode
     nbytes = (c1 * (d * cap * (rel.element_size() + 2 + v.element_size())
                     + cap * (m.element_size() + 4))
               + nb_ids.numel() * 4 + c1 * cap * (1 + d) * 4)
-    return pairs, ops, nbytes
+    return pairs, inside, ops, nbytes
+
+
+def k2_support_pairs(args, kw, chunk: int = 16384) -> int:
+    """Pairs of occupied slots whose distance is below 2h (the B-spline's
+    support), by the plain version's decode."""
+    from repro_torch.core import cells
+    from repro_torch.kernels import tiling
+
+    rel, shift, v, m, inv_rho, nb_ids = args
+    occ = m != 0
+    occ[-1] = False
+    offs = cells.neighbor_cell_offsets(kw["dim"])
+    support2 = (2.0 * kw["h"]) ** 2
+    inside = 0
+    for c0 in range(0, rel.shape[0], chunk):
+        sl = slice(c0, c0 + chunk)
+        for k in range(nb_ids.shape[1]):
+            nbk = nb_ids[sl, k].long()
+            _, r2 = tiling.tile_phys_disp_shifted(rel[sl], rel[nbk], shift[sl], shift[nbk],
+                                                   offs[k], kw["hc_phys"])
+            both = occ[sl][:, :, None] & occ[nbk][:, None, :]
+            inside += int(((r2 < support2) & both).sum())
+    return inside
+
+
+def k2_visited_pairs(args) -> int:
+    """Pairs whose distance the kernel decodes on these inputs: each
+    occupied slot and one representative empty slot per row that has one,
+    against the occupied slots of its neighbor cells (csrc/rcll_force.cu)."""
+    rel, shift, v, m, inv_rho, nb_ids = args
+    cap = rel.shape[2]
+    occ = (m != 0).sum(dim=1).to(torch.int64)
+    work = occ + (occ < cap).to(torch.int64)
+    return int((work * occ[nb_ids.long()].sum(dim=1)).sum())
 
 
 def _occupied_pairs(occ: torch.Tensor, nb_ids: torch.Tensor) -> int:
@@ -541,14 +581,16 @@ def phase3_main_path(results: dict) -> None:
     ms2 = time_ms(lambda: K2(*a2, **kw2), reps=10)
     plain2 = time_ms(lambda: rcll_force.rcll_force_ref(*a2, **kw2), reps=3, warmup=1)
     b1, by1 = bound(k1_bytes(a1, kw1), 0.0)
-    pairs, ops2, bytes2 = k2_work(a2, kw2)
+    pairs, inside, ops2, bytes2 = k2_work(a2, kw2)
     b2, by2 = bound(bytes2, ops2)
     log(f"[3] K1 at main-path shapes t16 {tuple(a1[0].shape)} rows: {ms1:.4f} ms "
         f"(plain {plain1:.4f} ms), bound {b1:.4f} ms by {by1} "
         f"({k1_bytes(a1, kw1)} bytes), bit-identical")
     log(f"[3] K2 at main-path shapes rel {tuple(a2[0].shape)}: {ms2:.4f} ms "
-        f"(plain {plain2:.4f} ms), bound {b2:.4f} ms by {by2} ({pairs} needed pairs, "
-        f"{ops2:.4g} ops, {bytes2} bytes); {k2_summary(c2)}, in the kernel's "
+        f"(plain {plain2:.4f} ms), bound {b2:.4f} ms by {by2} ({pairs} occupied pairs, "
+        f"{inside} inside the support, {k2_visited_pairs(a2)} visited by the kernel; "
+        f"{ops2:.4g} ops, {bytes2} bytes); "
+        f"{k2_summary(c2)}, in the kernel's "
         f"mass-normalized units (m_scale {float(carry.m_scale):.6g})")
     results["kernels"] = [
         {"name": "cell_tables", "route": "cuda",
@@ -665,9 +707,10 @@ def phase5_kernel_vs_plain_path() -> None:
 
 def phase7_planted_faults() -> None:
     """Plant faults in K2 through its runtime parameters (the sources are
-    untouched): the Morris term dropped, and the EOS constant 1% off. The
-    K2 check at the main path's inputs (phase 3's), phase 2 and phase 5
-    must each fail on each fault."""
+    untouched): the Morris term dropped, the EOS constant 1% off, and the
+    last occupied slot of every neighbor tile skipped. The K2 check at the
+    main path's inputs (phase 3's), phase 2 and phase 5 must each fail on
+    each fault."""
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
     from repro_torch.kernels import rcll_force
@@ -678,23 +721,12 @@ def phase7_planted_faults() -> None:
     with capture_kernel_inputs(store):
         solver.step_persistent(sim.cfg, solver.init_persistent(sim.cfg, sim.state))
     params = rcll_force.kernel_params
-
-    def planted(fault):
-        def faulty(**kw):
-            f, i = params(**kw)
-            if fault == "no_dv":
-                i[2] = 0  # has_dv
-            else:
-                f[5] *= 1.01  # eos_k
-            return f, i
-        return faulty
-
     checks = (("main-path K2 check", lambda: rcll_force.check_against_plain(*store["k2"])),
               ("phase 2", phase2_kernels), ("phase 5", phase5_kernel_vs_plain_path))
     missed = []
-    for fault in ("no_dv", "eos_k_1pct"):
+    for fault in rcll_force.FAULTS:
         for name, check in checks:
-            rcll_force.kernel_params = planted(fault)
+            rcll_force.kernel_params = rcll_force.planted_params(fault)
             try:
                 check()
                 missed.append((fault, name))
@@ -1402,6 +1434,12 @@ def phase6_profile(nsteps: int = 10) -> None:
         if e.self_device_time_total > 0:
             log(f"[6]   {e.self_device_time_total / 1e3 / nsteps:9.4f} ms/step "
                 f"{e.count // nsteps:4d} calls/step  {e.key[:90]}")
+    passes = {e.key.split("namespace)::", 1)[1].split("(")[0]: e for e in events
+              if "namespace)::" in e.key}
+    log("[6] K1 and K2 passes: " + ", ".join(
+        f"{name} {e.self_device_time_total / 1e3 / nsteps:.4f} ms/step"
+        for name, e in sorted(passes.items())
+        if name.startswith(("cell_tables_kernel", "stage_kernel", "force_kernel"))))
 
 
 def main() -> int:

@@ -1,29 +1,37 @@
 """K2: fused cell-blocked WCSPH force evaluation over RCLL cell tables.
 
 Replaces the Pallas kernel ``repro/kernels/rcll_force.py::rcll_force``
-with the hand-written CUDA kernel ``csrc/rcll_force.cu``. Per (self cell,
-neighbor cell) tile of ``cap x cap`` pairs it decodes Eq. (7) with the
-stale-cell shift re-anchor, evaluates the B-spline gradient, derives
-p/ρ² from the streamed 1/ρ through the scheme's EOS and sums the ∇W
-channel (pressure + artificial viscosity), the Morris dv channel and the
-delta-SPH continuity term in fp32 over the 3^d neighborhood.
+with the hand-written CUDA kernel ``csrc/rcll_force.cu``. For every slot
+it decodes Eq. (7) with the stale-cell shift re-anchor against the slots
+of its 3^d neighbor cells, evaluates the B-spline gradient, derives p/ρ²
+from the streamed 1/ρ through the scheme's EOS and sums the ∇W channel
+(pressure + artificial viscosity), the Morris dv channel and the
+delta-SPH continuity term in fp32.
 
 Inputs (C+1 rows, the last the sentinel empty cell): ``rel (C+1, d,
 cap)`` fp16 or fp32, ``shift (C+1, d, cap)`` int16 (cell_now −
 cell_stale), ``v (C+1, d, cap)`` and ``m (C+1, cap)`` in the records
 dtype (fp16, bf16 or fp32), ``inv_rho (C+1, cap)`` fp32, ``nb_ids (C+1,
-M)`` int32. Outputs ``drho (C+1, cap)`` and ``acc (C+1, d, cap)`` fp32.
+M)`` int32. Outputs ``drho (C+1, cap)`` and ``acc (C+1, d, cap)`` fp32,
+at every slot.
 
-On the H100 the kernel is bound by operations: about 60 fp32 operations
-per pair against ~16 bytes per slot (taylor_green at N = 1,048,576
-evaluates (C+1)·9·cap² ≈ 6.5e8 pairs per step). The simple design (one
-block per self cell, one thread per self slot, neighbor tiles staged in
-shared memory) is described, with what it leaves on the table, in the
-CUDA source.
+The TPU kernel evaluates every slot pair of every tile, (C+1)·9·cap² ≈
+6.5e8 pairs per step at taylor_green (N = 1,048,576, cap 20), ~12x the
+occupied ones. The CUDA kernel stages one fp32 record per slot
+(re-anchored rel, v, m, 1/ρ, p/ρ²) and the rows' occupied counts in a
+first pass, then gives one thread to each occupied slot and to one
+representative empty slot per row, packed across 32 consecutive cells
+per block, and walks only the neighbors' occupied slots: Σ_c (occ_c +
+[occ_c < cap]) · Σ_k occ_nb(c,k) pairs, ≈ 6.3e7 at taylor_green. Only
+the ~40% of those inside the support (r < 2h) go through the pair terms
+(~60 fp32 operations, a sqrt and IEEE divisions); the others have dW = 0
+and add exact zeros. Priced so, taylor_green's least time is set by its
+~115 MB of inputs and outputs. The source describes the design and what
+it leaves on the table.
 
 :func:`rcll_force` launches the kernel for CUDA tensors and takes the
 plain version :func:`rcll_force_ref` only for CPU tensors.
-``rcll_force.launches`` counts kernel launches.
+``rcll_force.launches`` counts wrapper calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -250,7 +258,7 @@ def check_against_plain(args: tuple, kw: dict) -> dict:
 def _entry():
     fn = _build.library().lib.repro_rcll_force
     fn.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
         + [ctypes.c_void_p] * 3
     )
     fn.restype = ctypes.c_int
@@ -259,7 +267,8 @@ def _entry():
 
 def kernel_params(*, hc_phys: tuple, h: float, dim: int, scheme: scheme_lib.Scheme):
     """The kernel's fp32/int parameters, each folded in double in the
-    order the plain version's Python expressions fold it."""
+    order the plain version's Python expressions fold it. The last int,
+    ``skip_last_nb``, is 0 (:func:`planted_params` plants 1)."""
     hc = list(hc_phys) + [0.0] * (3 - len(hc_phys))
     if scheme.eos == "tait":
         eos_k = scheme.c0 * scheme.c0 * scheme.rho0 / scheme.gamma
@@ -278,9 +287,35 @@ def kernel_params(*, hc_phys: tuple, h: float, dim: int, scheme: scheme_lib.Sche
     ]
     iparams = [
         int(scheme.eos == "tait"), int(scheme.has_av_term),
-        int(scheme.has_dv_term), int(scheme.has_delta_term),
+        int(scheme.has_dv_term), int(scheme.has_delta_term), 0,
     ]
-    return (ctypes.c_float * len(fparams))(*fparams), (ctypes.c_int * 4)(*iparams)
+    return (ctypes.c_float * len(fparams))(*fparams), (ctypes.c_int * 5)(*iparams)
+
+
+#: The faults :func:`planted_params` plants.
+FAULTS = ("no_dv", "eos_k_1pct", "skip_last_nb")
+
+
+def planted_params(fault: str):
+    """A stand-in for :func:`kernel_params` with ``fault`` planted: the
+    Morris term dropped, the EOS constant 1% off, or the last occupied
+    slot of every neighbor tile skipped. A check rebinds
+    ``kernel_params`` to it, and must then fail."""
+    if fault not in FAULTS:
+        raise ValueError(f"unknown fault {fault!r}, not in {FAULTS}")
+    clean = kernel_params
+
+    def faulty(**kw):
+        f, i = clean(**kw)
+        if fault == "no_dv":
+            i[2] = 0  # has_dv
+        elif fault == "eos_k_1pct":
+            f[5] *= 1.01  # eos_k
+        else:
+            i[4] = 1  # skip_last_nb
+        return f, i
+
+    return faulty
 
 
 def _check(t, name, dtypes, shape, device):
@@ -311,6 +346,13 @@ def rcll_force(
 
     CPU tensors take :func:`rcll_force_ref`; CUDA tensors launch the
     kernel or raise.
+
+    The kernel relies on the layout K1 (``cell_pack.cell_tables``) writes,
+    which the plain version does not need: the occupied slots (m != 0) of
+    every row are a prefix of the row, and all empty slots of a row hold
+    identical inputs (rel, shift, v, m and 1/ρ), so they share one output,
+    computed once per row. ``tests/test_torch_force_layout.py`` holds the
+    port's producers of these tables to it.
     """
     dev = rel.device
     if dev.type == "cpu":
@@ -322,8 +364,8 @@ def rcll_force(
     M = 3**dim
     if d != dim or dim not in (2, 3):
         raise ValueError(f"rel has {d} axes; dim is {dim} (2 or 3 supported)")
-    if not 1 <= cap <= 1024:
-        raise ValueError(f"cap must be in [1, 1024], got {cap}")
+    if cap < 1:
+        raise ValueError(f"cap must be at least 1, got {cap}")
     _check(rel, "rel", tuple(_REL_KIND), (C1, d, cap), dev)
     _check(shift, "shift", (torch.int16,), (C1, d, cap), dev)
     _check(v, "v", tuple(_REC_KIND), (C1, d, cap), dev)
@@ -332,6 +374,11 @@ def rcll_force(
     _check(nb_ids, "nb_ids", (torch.int32,), (C1, M), dev)
     drho = torch.empty((C1, cap), dtype=torch.float32, device=dev)
     acc = torch.empty((C1, d, cap), dtype=torch.float32, device=dev)
+    # Scratch of the staging pass: 2 (2-D) or 3 (3-D) float4 per slot, and
+    # each row's occupied count.
+    staged = torch.empty((C1 * cap * (2 if dim == 2 else 3), 4), dtype=torch.float32,
+                         device=dev)
+    n_occ = torch.empty((C1,), dtype=torch.int32, device=dev)
     fparams, iparams = kernel_params(hc_phys=hc_phys, h=h, dim=dim, scheme=scheme)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -339,6 +386,7 @@ def rcll_force(
             dim, _REL_KIND[rel.dtype], _REC_KIND[v.dtype],
             rel.data_ptr(), shift.data_ptr(), v.data_ptr(), m.data_ptr(),
             inv_rho.data_ptr(), nb_ids.data_ptr(), drho.data_ptr(), acc.data_ptr(),
+            staged.data_ptr(), n_occ.data_ptr(),
             C1, cap, M, ctypes.addressof(fparams), ctypes.addressof(iparams), stream,
         )
     _build.check_rc(rc, "rcll_force")

@@ -62,11 +62,24 @@ def test_cell_tables_kernel_bit_identical(cuda_device, n, dim, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim,scheme,records", [
-    (2, WCSPH, "fp16"), (2, DAM, "fp32"), (2, DAM, "bf16"), (3, WCSPH, "fp16"),
+@pytest.mark.parametrize("dim,scheme,records,layout", [
+    (2, WCSPH, "fp16", {}), (2, DAM, "fp32", {}), (2, DAM, "bf16", {}), (3, WCSPH, "fp16", {}),
+    # the occupied-slot walk where it could go wrong: rows full at cap (no
+    # representative empty slot), all-empty cells away from the sentinel,
+    # fp32 rel, and 3-D Tait + artificial viscosity + delta-SPH, fp32 records
+    (2, WCSPH, "fp16", dict(tight_cap=True)),
+    (2, DAM, "fp32", dict(hole=True)),
+    (3, WCSPH, "bf16", dict(tight_cap=True, hole=True, rel="fp32")),
+    (3, dict(DAM, body_force=()), "fp32", {}),
 ])
-def test_rcll_force_kernel_within_rounding_bound(cuda_device, dim, scheme, records):
-    t, kw = make_tiles(5 + dim, dim, scheme, records, n=8000 if dim == 2 else 6000)
+def test_rcll_force_kernel_within_rounding_bound(cuda_device, dim, scheme, records, layout):
+    seed = 5 + dim if not layout else 11 + dim
+    t, kw = make_tiles(seed, dim, scheme, records, n=8000 if dim == 2 else 6000, **layout)
+    n_occ = (t["m"] != 0).sum(dim=1)
+    if layout.get("tight_cap"):
+        assert int((n_occ == t["m"].shape[1]).sum()) > 0
+    if layout.get("hole"):
+        assert int((n_occ[:-1] == 0).sum()) > 0
     t = {k: x.to(cuda_device) for k, x in t.items()}
     before = trf.rcll_force.launches
     # raises unless every element is within rounding_bound and each
@@ -76,23 +89,14 @@ def test_rcll_force_kernel_within_rounding_bound(cuda_device, dim, scheme, recor
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fault", ["no_dv", "eos_1pct"])
+@pytest.mark.parametrize("fault", trf.FAULTS)
 def test_check_against_plain_fails_a_planted_fault(cuda_device, monkeypatch, fault):
-    """The tolerances catch a wrong kernel: the Morris term dropped, or
-    the EOS constant 1% off (at taylor_green's c0 and mu)."""
+    """The tolerances catch a wrong kernel: the Morris term dropped, the
+    EOS constant 1% off (at taylor_green's c0 and mu), or the last
+    occupied slot of every neighbor tile skipped."""
     t, kw = make_tiles(7, 2, dict(c0=10.0, rho0=1.0, mu=0.05), "fp16", n=8000)
     t = {k: x.to(cuda_device) for k, x in t.items()}
-    params = trf.kernel_params
-
-    def faulty(**k):
-        f, i = params(**k)
-        if fault == "no_dv":
-            i[2] = 0
-        else:
-            f[5] *= 1.01
-        return f, i
-
-    monkeypatch.setattr(trf, "kernel_params", faulty)
+    monkeypatch.setattr(trf, "kernel_params", trf.planted_params(fault))
     with pytest.raises(AssertionError, match="disagrees"):
         trf.check_against_plain(tuple(t.values()), kw)
 

@@ -23,15 +23,20 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+STORAGE = {"fp16": torch.float16, "bf16": torch.bfloat16, "fp32": torch.float32}
 WCSPH = dict(c0=1.25, rho0=1.0, mu=1.0)
 DAM = dict(c0=14.142135623730951, rho0=1.0, eos="tait", gamma=7.0,
            viscosity="none", alpha=0.1, delta=0.1, body_force=(0.0, -1.0))
 
 
-def make_tiles(seed, dim, scheme, records, n=None):
+def make_tiles(seed, dim, scheme, records, n=None, *, rel="fp16", tight_cap=False,
+               hole=False):
     """CPU tensors for one K2 call (and its keyword arguments) from a
     random cloud advanced by a fraction of a Verlet skin, so some cell
-    shifts are non-zero."""
+    shifts are non-zero. ``rel`` is the storage of the relative
+    coordinates; ``tight_cap`` sets the cell capacity to the fullest
+    cell's count, so some rows are full; ``hole`` removes the particles of
+    a central box, so some cells away from the sentinel are empty."""
     rng = np.random.default_rng(seed)
     n = n or (700 if dim == 2 else 1500)
     ds = (1.0 / n) ** (1.0 / dim)
@@ -39,13 +44,20 @@ def make_tiles(seed, dim, scheme, records, n=None):
                     cell_factor=2.0 if dim == 2 else 1.0,
                     periodic=(True,) + (False,) * (dim - 1))
     x = torch.as_tensor(rng.uniform(0, 1, (n, dim)).astype(np.float32))
+    if hole:
+        x = x[((x - 0.5).abs() > 0.2).any(dim=1)]
+        n = x.shape[0]
     cap = tcells.default_capacity(dom, n, safety=8.0)
-    ps = trcll.pack_state(dom, trcll.init_state(dom, dom.normalize(x)), cap)
+    st = trcll.init_state(dom, dom.normalize(x), STORAGE[rel])
+    ps = trcll.pack_state(dom, st, cap)
+    if tight_cap:
+        cap = int(ps.packing.binning.counts.max())
+        ps = trcll.pack_state(dom, st, cap)
     skin = 0.5 * min(dom.cell_sizes) * 2.0 / dom.h_d
     dxn = torch.as_tensor(rng.uniform(-1, 1, (n, dim)).astype(np.float32)) * (0.2 * skin)
-    rc = trcll.advance(dom, ps.rc, dxn)
+    rc = trcll.advance(dom, ps.rc, dxn, dtype=STORAGE[rel])
     b = ps.packing.binning
-    rdt = {"fp32": torch.float32, "fp16": torch.float16, "bf16": torch.bfloat16}[records]
+    rdt = STORAGE[records]
     v = torch.as_tensor((rng.normal(size=(n, dim)) * 0.3).astype(np.float32))
     rho = torch.as_tensor((1.0 + 0.01 * rng.normal(size=n)).astype(np.float32))
     m = torch.full((n,), 1.0 / n)
@@ -58,9 +70,6 @@ def make_tiles(seed, dim, scheme, records, n=None):
         rel=cm(rc.rel), shift=cm(shift), v=cm(v.to(rdt)), m=tab(m.to(rdt)),
         inv_rho=tab(1.0 / rho, 1.0 / sch.rho0), nb_ids=tops.nb_with_sentinel(dom, "cpu"),
     ), dict(hc_phys=tuple(dom.cell_sizes), h=dom.h, dim=dim, scheme=sch)
-
-
-STORAGE = {"fp16": torch.float16, "bf16": torch.bfloat16, "fp32": torch.float32}
 
 
 def make_nnps_tiles(seed, dim, n, storage="fp16", periodic=False, cell_factor=1.0):
