@@ -12,7 +12,8 @@ Phases (each prints its own lines and raises on failure):
      versions, the nvcc build of ``src/repro_torch/csrc`` and its ptxas
      register/spill lines;
   2. every kernel against its plain PyTorch version on the card, on
-     random Verlet-advanced clouds (2-D ~65k and 3-D ~30k particles):
+     random Verlet-advanced clouds (2-D ~65k and 3-D ~30k particles, some
+     with every 97th particle massless):
      K1 (cell pack) bit for bit in both slab layouts, K2 (fused force)
      by ``rcll_force.check_against_plain`` (each element within
      ``rounding_bound``, each output within ``NORMWISE_LIMIT`` over
@@ -48,7 +49,8 @@ Phases (each prints its own lines and raises on failure):
      alone (r_cell^2 1% larger, the self pair kept) and in K3 (the sign of f_j - f_i
      flipped, one cell edge 1% longer), phase 2's NNPS checks and
      phase 8's checks must each fail on each; in K6 (the length mask one
-     block short, the int8 divisor 127 -> 128) and in K7 (the causal mask
+     block short, the int8 divisor 127 -> 128, the merge of the key splits
+     skipping the last one) and in K7 (the causal mask
      one column late), phase 2's K6/K7 checks, phase 9's checks at
      captured inputs, phase 9's request check (over the prefill and 8
      decode steps) and its logit gates alone must each fail on each;
@@ -68,7 +70,8 @@ Phases (each prints its own lines and raises on failure):
      before and read just after each (K7 28 a prefill, K6 28 a decode
      step); ``cache_bytes`` equal to the count from the shapes; K6 and K7
      at the anchored run's captured inputs against their plain versions,
-     timed beside them, their bounds and (K7) ``scaled_dot_product_attention``;
+     timed beside them, their bounds and (K7) ``scaled_dot_product_attention``
+     (K6 also with its grid, and on inputs cold in L2);
      the whole anchored request against the plain path, teacher-forced:
      every logit finite and within ``transformer.logit_tolerance``, the
      logits within ``LOGIT_NORMWISE_LIMIT`` normwise, and every K6 and K7
@@ -254,14 +257,13 @@ def k2_work(args, kw):
     inside the support (r < 2h, where dW != 0) need the pair terms."""
     rel, shift, v, m, inv_rho, nb_ids = args
     c1, d, cap = rel.shape
-    occ = (m != 0).sum(dim=1).to(torch.int64)  # empty slots carry m = 0
-    occ[-1] = 0
+    occ = kw["counts"].to(torch.int64)  # the binning's, clamped to cap; sentinel 0
     pairs = int((occ[:, None] * occ[nb_ids.long()]).sum())
     inside = k2_support_pairs(args, kw)
     decode = 6 * kw["dim"]  # (6d - 1) decode operations and the test
     ops = inside * k2_ops_per_pair(kw["dim"], kw["scheme"]) + (pairs - inside) * decode
     nbytes = (c1 * (d * cap * (rel.element_size() + 2 + v.element_size())
-                    + cap * (m.element_size() + 4))
+                    + cap * (m.element_size() + 4) + 4)
               + nb_ids.numel() * 4 + c1 * cap * (1 + d) * 4)
     return pairs, inside, ops, nbytes
 
@@ -270,11 +272,10 @@ def k2_support_pairs(args, kw, chunk: int = 16384) -> int:
     """Pairs of occupied slots whose distance is below 2h (the B-spline's
     support), by the plain version's decode."""
     from repro_torch.core import cells
-    from repro_torch.kernels import tiling
+    from repro_torch.kernels import rcll_force, tiling
 
     rel, shift, v, m, inv_rho, nb_ids = args
-    occ = m != 0
-    occ[-1] = False
+    occ = rcll_force.occupied_slots(m, kw["counts"])
     offs = cells.neighbor_cell_offsets(kw["dim"])
     support2 = (2.0 * kw["h"]) ** 2
     inside = 0
@@ -289,13 +290,13 @@ def k2_support_pairs(args, kw, chunk: int = 16384) -> int:
     return inside
 
 
-def k2_visited_pairs(args) -> int:
+def k2_visited_pairs(args, kw) -> int:
     """Pairs whose distance the kernel decodes on these inputs: each
     occupied slot and one representative empty slot per row that has one,
     against the occupied slots of its neighbor cells (csrc/rcll_force.cu)."""
     rel, shift, v, m, inv_rho, nb_ids = args
     cap = rel.shape[2]
-    occ = (m != 0).sum(dim=1).to(torch.int64)
+    occ = kw["counts"].to(torch.int64)
     work = occ + (occ < cap).to(torch.int64)
     return int((work * occ[nb_ids.long()].sum(dim=1)).sum())
 
@@ -407,9 +408,12 @@ def phase1_build() -> dict:
     return {"build_s": lib.build_seconds}
 
 
-def _cloud_inputs(dim, n, scheme_kw, records, seed, dev=torch.device("cuda")):
+def _cloud_inputs(dim, n, scheme_kw, records, seed, massless=False,
+                  dev=torch.device("cuda")):
     """K1/K2 inputs from ops.rcll_force_particles on a random cloud whose
-    positions were Verlet-advanced (so some cell shifts are non-zero)."""
+    positions were Verlet-advanced (so some cell shifts are non-zero);
+    ``massless`` zeroes every 97th particle's mass (massless particles
+    are occupied slots wherever they sit in a row)."""
     from repro_torch.core import cells, rcll
     from repro_torch.core import scheme as scheme_lib
     from repro_torch.core.domain import Domain
@@ -429,6 +433,8 @@ def _cloud_inputs(dim, n, scheme_kw, records, seed, dev=torch.device("cuda")):
     v = torch.as_tensor((0.3 * rng.normal(size=(n, dim))).astype(np.float32), device=dev)
     rho = torch.as_tensor((1.0 + 0.01 * rng.normal(size=n)).astype(np.float32), device=dev)
     m = torch.full((n,), ds**dim, device=dev)
+    if massless:
+        m[::97] = 0.0
     store: dict = {}
     rdt = {"fp16": torch.float16, "fp32": torch.float32}[records]
     with capture_kernel_inputs(store):
@@ -444,12 +450,14 @@ def phase2_kernels() -> None:
     dam = dict(c0=10.0 * math.sqrt(2.0), rho0=1.0, eos="tait", gamma=7.0,
                viscosity="none", alpha=0.1, delta=0.1)
     cases = [
-        (2, 65536, wcsph, "fp16"), (2, 65536, wcsph, "fp32"),
-        (2, 65536, dam, "fp16"), (2, 65536, dam, "fp32"),
-        (3, 32768, wcsph, "fp16"), (3, 32768, dam, "fp32"),
+        (2, 65536, wcsph, "fp16", False), (2, 65536, wcsph, "fp32", False),
+        (2, 65536, dam, "fp16", False), (2, 65536, dam, "fp32", False),
+        (3, 32768, wcsph, "fp16", False), (3, 32768, dam, "fp32", False),
+        (2, 65536, wcsph, "fp16", True), (3, 32768, dam, "fp32", True),
     ]
-    for i, (dim, n, sch, rec) in enumerate(cases):
-        store, shifted, overflow = _cloud_inputs(dim, n, sch, rec, seed=100 + i)
+    for i, (dim, n, sch, rec, massless) in enumerate(cases):
+        store, shifted, overflow = _cloud_inputs(dim, n, sch, rec, seed=100 + i,
+                                                 massless=massless)
         if overflow:
             raise AssertionError(f"test cloud overflowed its cell capacity ({overflow})")
         if shifted == 0:
@@ -458,7 +466,8 @@ def phase2_kernels() -> None:
         c2 = rcll_force.check_against_plain(*store["k2"])
         eos = sch.get("eos", "linear")
         f16, f32 = store["k1"][0][0].shape[1], store["k1"][0][1].shape[1]
-        log(f"[2] dim {dim} N {n} eos {eos} records {rec}: K1 bit-identical "
+        log(f"[2] dim {dim} N {n} eos {eos} records {rec} massless "
+            f"{'1 in 97' if massless else 'none'}: K1 bit-identical "
             f"(F16 {f16}, F32 {f32}); {k2_summary(c2)}; "
             f"{shifted} particles with non-zero shift")
     phase2_nnps()
@@ -588,7 +597,7 @@ def phase3_main_path(results: dict) -> None:
         f"({k1_bytes(a1, kw1)} bytes), bit-identical")
     log(f"[3] K2 at main-path shapes rel {tuple(a2[0].shape)}: {ms2:.4f} ms "
         f"(plain {plain2:.4f} ms), bound {b2:.4f} ms by {by2} ({pairs} occupied pairs, "
-        f"{inside} inside the support, {k2_visited_pairs(a2)} visited by the kernel; "
+        f"{inside} inside the support, {k2_visited_pairs(a2, kw2)} visited by the kernel; "
         f"{ops2:.4g} ops, {bytes2} bytes); "
         f"{k2_summary(c2)}, in the kernel's "
         f"mass-normalized units (m_scale {float(carry.m_scale):.6g})")
@@ -1020,8 +1029,8 @@ def phase2_lm() -> None:
                                 heads_last=heads_last, device="cuda")
         c = k6.check_against_plain(args, {})
         log(f"[2] K6 B {b} H {h} Hkv {hkv} Dh {dh} nblk {nblk} blk {blk} "
-            f"{str(resid).split('.')[-1]} lengths {lengths} heads-last views {heads_last}: "
-            f"{lm_summary(c)}; m and l within the bound")
+            f"{str(resid).split('.')[-1]} lengths {lengths} heads-last views {heads_last} "
+            f"({k6.grid(args[1])[0]} CTAs): {lm_summary(c)}; m and l within the bound")
     for i, (b, h, hkv, lq, lk, dh, dtype, causal, heads_last) in enumerate([
         (2, 24, 8, 1024, 1024, 128, torch.bfloat16, True, True),
         (2, 8, 2, 300, 300, 64, torch.float32, True, False),
@@ -1036,6 +1045,41 @@ def phase2_lm() -> None:
         log(f"[2] K7 B {b} H {h} Hkv {hkv} Lq {lq} Lk {lk} Dh {dh} "
             f"{str(dtype).split('.')[-1]} causal {causal} heads-last views {heads_last}: "
             f"{lm_summary(c)}")
+
+
+def _twin(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` with its strides (a strided view of a cache stays one)."""
+    u = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype, device=t.device)
+    u.copy_(t)
+    return u
+
+
+def k6_grid_times(a, kw, bound_ms: float, copies: int = 8) -> str:
+    """K6's grid at the captured inputs, and its time in a CUDA graph
+    beside the warm one every K6 time is: cycling over ``copies`` copies
+    of its inputs (8 x ~10.5 MB of cache views, more than the 50 MB L2, so
+    each launch finds its cache cold, as a decode step does: each layer
+    has its own), with every length 0 (the two launches and the exits)
+    and with one cache block a row (one CTA's load, scores, P.V and the
+    merge of one partial, with no other CTA to overlap)."""
+    import itertools
+
+    from repro_torch.kernels import rcll_kv_attention as k6
+
+    fn = wrapper("k6")
+    twins = itertools.cycle([tuple(_twin(t) for t in a) for _ in range(copies)])
+    cold = time_ms_graph(lambda: fn(*next(twins), **kw), reps=48)
+    ctas, nsplit = k6.grid(a[1])
+    blk = a[1].shape[3]
+    busy = int(((a[7].long() + blk - 1) // blk).sum()) * a[1].shape[1]
+    empty = a[:7] + (torch.zeros_like(a[7]),)
+    one = a[:7] + (torch.full_like(a[7], blk),)
+    floor_ms = time_ms_graph(lambda: fn(*empty, **kw))
+    one_ms = time_ms_graph(lambda: fn(*one, **kw))
+    return (f"; grid {ctas} CTAs ({nsplit} splits per (b, kv head), {busy} with keys below "
+            f"length) and a merge kernel; on inputs cold in L2 {cold:.4f} ms "
+            f"({cold / bound_ms:.1f}x the bound); every length 0: {floor_ms:.4f} ms; one cache "
+            f"block a row: {one_ms:.4f} ms")
 
 
 def lm_summary(c: dict) -> str:
@@ -1253,7 +1297,7 @@ def phase9_serving(results: dict) -> None:
         lib_ms = lib(a, kw) if lib else None
         n, ops_n, tensor_ops, nbytes = work(a, kw)
         bms, by = bound(nbytes, ops_n, tensor_ops)
-        extra = ""
+        extra = k6_grid_times(a, kw, bms) if key == "k6" else ""
         if key == "k7":
             extra = (f"; were every operation on the bf16 tensor cores, "
                      f"{(ops_n + tensor_ops) / H100_BF16_TENSOR_OPS_PER_S * 1e3:.4f} ms, the bytes "
@@ -1351,7 +1395,8 @@ def _sdpa_library(a, kw) -> float:
 
 def lm_planted_faults() -> list:
     """Faults planted in K6 (the length mask one block short; the int8
-    divisor 127 -> 128) and in K7 (the causal mask one column late)
+    divisor 127 -> 128; the merge skipping each row's last key split) and
+    in K7 (the causal mask one column late)
     through ``planted_params``: phase 2's K6/K7 checks, phase 9's checks
     at captured inputs, phase 9's request check (over the prefill and 8
     decode steps) and that check's logit gates alone (no per-launch

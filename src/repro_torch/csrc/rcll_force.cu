@@ -9,6 +9,9 @@
 // continuity term, in fp32. Empty slots carry m = 0 and 1/rho0, so their
 // pair terms are exact zeros; compact support zeroes out-of-range and self
 // pairs, exactly as in the Pallas kernel. The shift stream is int16.
+// Occupancy comes from the binning: row c's occupied slots are 0 ..
+// min(counts[c], cap) - 1 (K1 packs them first), whatever their masses; a
+// massless particle is occupied and is walked like any other.
 //
 // Bound on the H100: the pair terms cost ~60 fp32 operations (one sqrt,
 // two to four IEEE divisions) against ~16 bytes per slot, but only pairs
@@ -20,9 +23,8 @@
 // kernel visits only pairs whose neighbor slot is occupied, in two passes
 // on the caller's stream:
 //
-//  1. stage (one warp per row): counts the row's occupied slots (m != 0;
-//     K1 writes them as a prefix of the row) into n_occ, and writes one
-//     fp32 record per slot up to and including the first empty one: the
+//  1. stage (one warp per row): reads the row's occupied count and writes
+//     one fp32 record per slot up to and including the first empty one: the
 //     re-anchored rel, v, m, 1/rho and p/rho^2. The Tait powf and the
 //     decode run once per slot instead of once per tile it appears in.
 //  2. force (32 consecutive cells per 256-thread block): the work rows of
@@ -149,24 +151,22 @@ __device__ __forceinline__ Slot<DIM> load_slot(const float4* __restrict__ rec, s
   return s;
 }
 
-// Pass 1: per row, the occupied count and the staged records of slots
-// 0 .. min(count, cap - 1).
+// Row c's occupied count: the binning's count, read as at most cap.
+__device__ __forceinline__ int occupied(const int* __restrict__ counts, int c, int cap) {
+  return min(max(__ldg(counts + c), 0), cap);
+}
+
+// Pass 1: per row, the staged records of slots 0 .. min(count, cap - 1).
 template <int DIM, typename RelT, typename RecT>
 __global__ void __launch_bounds__(kStageThreads)
     stage_kernel(const RelT* __restrict__ rel, const int16_t* __restrict__ shift,
                  const RecT* __restrict__ v, const RecT* __restrict__ m,
-                 const float* __restrict__ inv_rho, float4* __restrict__ rec,
-                 int* __restrict__ n_occ, int c_rows, int cap, ForceParams p) {
+                 const float* __restrict__ inv_rho, const int* __restrict__ counts,
+                 float4* __restrict__ rec, int c_rows, int cap, ForceParams p) {
   const int c = (blockIdx.x * kStageThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (c >= c_rows) return;  // uniform over the warp
-  int count = 0;
-  for (int s0 = 0; s0 < cap; s0 += 32) {
-    const int s = s0 + lane;
-    const bool occ = s < cap && to_f32(m[static_cast<size_t>(c) * cap + s]) != 0.0f;
-    count += __popc(__ballot_sync(0xffffffffu, occ));
-  }
-  if (lane == 0) n_occ[c] = count;
+  const int count = occupied(counts, c, cap);
   const int staged = count < cap ? count + 1 : cap;
   for (int s = lane; s < staged; s += 32) {
     Slot<DIM> q;
@@ -231,7 +231,7 @@ __device__ __forceinline__ void pair_terms(const Slot<DIM>& me, const Slot<DIM>&
 // slot) of kCellsPerBlock consecutive cells.
 template <int DIM>
 __global__ void __launch_bounds__(kForceThreads, kForceMinBlocks)
-    force_kernel(const float4* __restrict__ rec, const int* __restrict__ n_occ,
+    force_kernel(const float4* __restrict__ rec, const int* __restrict__ counts,
                  const int* __restrict__ nb_ids, float* __restrict__ drho,
                  float* __restrict__ acc, int c_rows, int cap, ForceParams p) {
   constexpr int kNb = DIM == 2 ? 9 : 27;
@@ -243,7 +243,7 @@ __global__ void __launch_bounds__(kForceThreads, kForceMinBlocks)
   const int n_cells = min(kCellsPerBlock, c_rows - c0);
   if (threadIdx.x < 32) {
     const int i = threadIdx.x;
-    const int occ = i < n_cells ? n_occ[c0 + i] : 0;
+    const int occ = i < n_cells ? occupied(counts, c0 + i, cap) : 0;
     const int work = i < n_cells ? occ + (occ < cap ? 1 : 0) : 0;
     int incl = work;
 #pragma unroll
@@ -315,7 +315,7 @@ __global__ void __launch_bounds__(kForceThreads, kForceMinBlocks)
           }
           if (++k == kNb) break;
           const int nc = __ldg(nb_ids + static_cast<size_t>(c) * kNb + k);
-          count = __ldg(n_occ + nc) - p.skip_last_nb;
+          count = occupied(counts, nc, cap) - p.skip_last_nb;
           base = static_cast<size_t>(nc) * cap;
           j = 0;
 #pragma unroll
@@ -352,8 +352,8 @@ __global__ void __launch_bounds__(kForceThreads, kForceMinBlocks)
 }
 
 struct Launch {
-  const void *rel, *shift, *v, *m, *inv_rho, *nb_ids;
-  void *drho, *acc, *staged, *n_occ;
+  const void *rel, *shift, *v, *m, *inv_rho, *nb_ids, *counts;
+  void *drho, *acc, *staged;
   int c_rows, cap;
   ForceParams p;
   cudaStream_t stream;
@@ -364,13 +364,13 @@ struct Launch {
     stage_kernel<DIM, RelT, RecT><<<stage_blocks, kStageThreads, 0, stream>>>(
         static_cast<const RelT*>(rel), static_cast<const int16_t*>(shift),
         static_cast<const RecT*>(v), static_cast<const RecT*>(m),
-        static_cast<const float*>(inv_rho), static_cast<float4*>(staged),
-        static_cast<int*>(n_occ), c_rows, cap, p);
+        static_cast<const float*>(inv_rho), static_cast<const int*>(counts),
+        static_cast<float4*>(staged), c_rows, cap, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const int force_blocks = (c_rows + kCellsPerBlock - 1) / kCellsPerBlock;
     force_kernel<DIM><<<force_blocks, kForceThreads, 0, stream>>>(
-        static_cast<const float4*>(staged), static_cast<const int*>(n_occ),
+        static_cast<const float4*>(staged), static_cast<const int*>(counts),
         static_cast<const int*>(nb_ids), static_cast<float*>(drho), static_cast<float*>(acc),
         c_rows, cap, p);
     return static_cast<int>(cudaGetLastError());
@@ -397,18 +397,20 @@ int dispatch_rel(int rel_kind, int rec_kind, const Launch& l) {
 }  // namespace
 
 // rel_kind: 0 = fp16, 1 = fp32. rec_kind: 0 = fp16, 1 = bf16, 2 = fp32.
-// staged: (c_rows * cap * (dim == 2 ? 2 : 3)) float4 scratch, 16-byte
-// aligned; n_occ: (c_rows,) int32 scratch. n_nb must be 3^dim.
+// counts: (c_rows,) int32, each row's occupied count (read as at most cap;
+// the sentinel row's is 0). staged: (c_rows * cap * (dim == 2 ? 2 : 3))
+// float4 scratch, 16-byte aligned. n_nb must be 3^dim.
 // fparams: hc[0..2], h, a_dw, eos_k, rho0, neg_gamma, reg, avc, two_mu, dk.
 // iparams: eos_tait, has_av, has_dv, has_delta, skip_last_nb.
 extern "C" int repro_rcll_force(int dim, int rel_kind, int rec_kind, const void* rel,
                                 const void* shift, const void* v, const void* m,
-                                const void* inv_rho, const void* nb_ids, void* drho, void* acc,
-                                void* staged, void* n_occ, int c_rows, int cap, int n_nb,
+                                const void* inv_rho, const void* nb_ids, const void* counts,
+                                void* drho, void* acc, void* staged, int c_rows, int cap,
+                                int n_nb,
                                 const float* fparams, const int* iparams, void* stream) {
   if (cap < 1 || c_rows < 1 || (dim != 2 && dim != 3) || n_nb != (dim == 2 ? 9 : 27))
     return static_cast<int>(cudaErrorInvalidValue);
-  Launch l{rel, shift, v, m, inv_rho, nb_ids, drho, acc, staged, n_occ, c_rows, cap, {},
+  Launch l{rel, shift, v, m, inv_rho, nb_ids, counts, drho, acc, staged, c_rows, cap, {},
            static_cast<cudaStream_t>(stream)};
   ForceParams& p = l.p;
   for (int a = 0; a < 3; ++a) p.hc[a] = fparams[a];

@@ -155,6 +155,13 @@ def rcll_gradient_particles(domain: Domain, binning: cells_lib.CellBinning, rel:
     return unpack_per_particle((num / sph.guard_den(den, eps)).transpose(1, 2), binning)
 
 
+def occupied_counts(binning: cells_lib.CellBinning) -> torch.Tensor:
+    """(C+1,) int32 occupied slots per row of the binning's tables: its
+    per-cell count clamped to cap, and 0 for the sentinel row."""
+    counts = binning.counts.clamp(max=binning.table.shape[1]).to(torch.int32)
+    return torch.cat([counts, counts.new_zeros(1)])
+
+
 def mass_table(binning: cells_lib.CellBinning, m: torch.Tensor, records_dtype,
                m_scale: torch.Tensor | None = None) -> torch.Tensor:
     """(C+1, cap) static cell-major mass table for the force kernel.
@@ -246,6 +253,7 @@ def rcll_force_particles(
         h=domain.h,
         dim=domain.dim,
         scheme=scheme,
+        counts=occupied_counts(binning),
     )
     drho = unpack_per_particle(drho_t, binning) * m_scale
     acc = unpack_per_particle(acc_t.transpose(1, 2), binning) * m_scale

@@ -12,14 +12,15 @@ Inputs (C+1 rows, the last the sentinel empty cell): ``rel (C+1, d,
 cap)`` fp16 or fp32, ``shift (C+1, d, cap)`` int16 (cell_now −
 cell_stale), ``v (C+1, d, cap)`` and ``m (C+1, cap)`` in the records
 dtype (fp16, bf16 or fp32), ``inv_rho (C+1, cap)`` fp32, ``nb_ids (C+1,
-M)`` int32. Outputs ``drho (C+1, cap)`` and ``acc (C+1, d, cap)`` fp32,
-at every slot.
+M)`` int32, and for the kernel ``counts (C+1,)`` int32, each row's
+occupied count (the binning's, clamped to cap; 0 for the sentinel).
+Outputs ``drho (C+1, cap)`` and ``acc (C+1, d, cap)`` fp32, at every
+slot.
 
 The TPU kernel evaluates every slot pair of every tile, (C+1)·9·cap² ≈
 6.5e8 pairs per step at taylor_green (N = 1,048,576, cap 20), ~12x the
 occupied ones. The CUDA kernel stages one fp32 record per slot
-(re-anchored rel, v, m, 1/ρ, p/ρ²) and the rows' occupied counts in a
-first pass, then gives one thread to each occupied slot and to one
+(re-anchored rel, v, m, 1/ρ, p/ρ²) in a first pass, then gives one thread to each occupied slot and to one
 representative empty slot per row, packed across 32 consecutive cells
 per block, and walks only the neighbors' occupied slots: Σ_c (occ_c +
 [occ_c < cap]) · Σ_k occ_nb(c,k) pairs, ≈ 6.3e7 at taylor_green. Only
@@ -64,9 +65,13 @@ def rcll_force_ref(
     h: float,
     dim: int,
     scheme: scheme_lib.Scheme,
+    counts: torch.Tensor | None = None,
     abs_sums: bool = False,
 ):
     """Plain PyTorch version of :func:`rcll_force`.
+
+    It sums over every slot pair, so it needs no occupied ``counts``
+    (accepted for the kernel's signature and ignored).
 
     Processes self cells in chunks sized so that the pair intermediates
     stay under about ``REF_CHUNK_BYTES``; within a chunk it walks the
@@ -229,12 +234,14 @@ def check_against_plain(args: tuple, kw: dict) -> dict:
     hold viscous sums against their neighbors' full velocities, up to
     ~2e3 times the occupied slots' (taylor_green at N = 1,048,576):
     ``max_abs_err`` is taken over occupied slots, which the force pass
-    returns. Raises AssertionError; returns ``max_abs_err``, ``max_ratio``
-    (error over bound, all slots) and ``normwise``.
+    returns. Occupied slots are those below each row's ``kw["counts"]``
+    (massless particles included), or those with m != 0 where no counts
+    are given. Raises AssertionError; returns ``max_abs_err``,
+    ``max_ratio`` (error over bound, all slots) and ``normwise``.
     """
     d_k, a_k = rcll_force(*args, **kw)
     d_r, a_r, d_abs, a_abs = rcll_force_ref(*args, **kw, abs_sums=True)
-    occ = args[3] != 0
+    occ = occupied_slots(args[3], kw.get("counts"))
     out = {"max_abs_err": 0.0, "max_ratio": 0.0, "normwise": 0.0}
     for name, k, r, s, mask in (("drho", d_k, d_r, d_abs, occ),
                                 ("acc", a_k, a_r, a_abs, occ[:, None, :].expand_as(a_r))):
@@ -318,6 +325,15 @@ def planted_params(fault: str):
     return faulty
 
 
+def occupied_slots(m: torch.Tensor, counts: torch.Tensor | None) -> torch.Tensor:
+    """(C+1, cap) bool: slot s of row c is occupied when s < counts[c]
+    (the kernel's layout contract), or where m != 0 without counts."""
+    if counts is None:
+        return m != 0
+    slots = torch.arange(m.shape[1], device=m.device)
+    return slots[None, :] < counts.to(m.device)[:, None]
+
+
 def _check(t, name, dtypes, shape, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -341,18 +357,23 @@ def rcll_force(
     h: float,
     dim: int,
     scheme: scheme_lib.Scheme,
+    counts: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused SPH RHS ``(drho (C+1, cap), acc (C+1, d, cap))``.
 
     CPU tensors take :func:`rcll_force_ref`; CUDA tensors launch the
-    kernel or raise.
+    kernel or raise, and need ``counts``.
 
     The kernel relies on the layout K1 (``cell_pack.cell_tables``) writes,
-    which the plain version does not need: the occupied slots (m != 0) of
-    every row are a prefix of the row, and all empty slots of a row hold
-    identical inputs (rel, shift, v, m and 1/ρ), so they share one output,
-    computed once per row. ``tests/test_torch_force_layout.py`` holds the
-    port's producers of these tables to it.
+    which the plain version does not need: the occupied slots of row c
+    are the prefix ``0 .. min(counts[c], cap) - 1`` (``counts`` (C+1,)
+    int32 is the binning's per-cell count clamped to cap, 0 for the
+    sentinel row; a massless particle is occupied), and all empty slots
+    of a row hold identical inputs (rel, shift, v, m and 1/ρ), so they
+    share one output, computed once per row. The counts must be those of
+    the binning that built the tables, stale or not.
+    ``tests/test_torch_force_layout.py`` holds the port's producers of
+    these tables to it.
     """
     dev = rel.device
     if dev.type == "cpu":
@@ -372,21 +393,22 @@ def rcll_force(
     _check(m, "m", (v.dtype,), (C1, cap), dev)
     _check(inv_rho, "inv_rho", (torch.float32,), (C1, cap), dev)
     _check(nb_ids, "nb_ids", (torch.int32,), (C1, M), dev)
+    if counts is None:
+        raise ValueError("the kernel needs counts: each row's occupied count (C+1,) int32")
+    _check(counts, "counts", (torch.int32,), (C1,), dev)
     drho = torch.empty((C1, cap), dtype=torch.float32, device=dev)
     acc = torch.empty((C1, d, cap), dtype=torch.float32, device=dev)
-    # Scratch of the staging pass: 2 (2-D) or 3 (3-D) float4 per slot, and
-    # each row's occupied count.
+    # Scratch of the staging pass: 2 (2-D) or 3 (3-D) float4 per slot.
     staged = torch.empty((C1 * cap * (2 if dim == 2 else 3), 4), dtype=torch.float32,
                          device=dev)
-    n_occ = torch.empty((C1,), dtype=torch.int32, device=dev)
     fparams, iparams = kernel_params(hc_phys=hc_phys, h=h, dim=dim, scheme=scheme)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry()(
             dim, _REL_KIND[rel.dtype], _REC_KIND[v.dtype],
             rel.data_ptr(), shift.data_ptr(), v.data_ptr(), m.data_ptr(),
-            inv_rho.data_ptr(), nb_ids.data_ptr(), drho.data_ptr(), acc.data_ptr(),
-            staged.data_ptr(), n_occ.data_ptr(),
+            inv_rho.data_ptr(), nb_ids.data_ptr(), counts.data_ptr(), drho.data_ptr(),
+            acc.data_ptr(), staged.data_ptr(),
             C1, cap, M, ctypes.addressof(fparams), ctypes.addressof(iparams), stream,
         )
     _build.check_rc(rc, "rcll_force")

@@ -4,11 +4,14 @@ Replaces the Pallas kernel ``repro/kernels/rcll_kv_attention.py::
 rcll_kv_decode`` with the hand-written CUDA kernel
 ``csrc/rcll_kv_attention.cu``. RCLL-KV stores each cache block of K and
 V as ``anchor (fp32) + scale (fp32) * residual`` with an int8 (levels
-times 1/127), fp16 or bf16 residual (``core.anchored``); the kernel
-dequantizes the blocks below each row's length in registers and runs the
-``rep`` query heads of each kv head against them with an online softmax.
-Decode attention streams the cache, so its bound on the H100 is bytes
-(see the source's note and PERF.md).
+times 1/127), fp16 or bf16 residual (``core.anchored``). The kernel
+splits the keys below each row's length over CTAs, one per cache block,
+each of which copies its residual tiles into shared memory
+asynchronously, dequantizes them on chip and runs the ``rep`` query heads
+of its kv head against them; a second kernel of the same call merges the
+blocks' softmax partials in a fixed order. Decode attention streams the
+cache, so its bound on the H100 is bytes (see the source's note and
+PERF.md).
 
 Layouts are JAX's: q (B, H, Dh) f32; residuals (B, Hkv, nblk, blk, Dh);
 anchors and scales (B, Hkv, nblk, 1, Dh) f32; length (B,) int32. The
@@ -99,25 +102,27 @@ def check_against_plain(args: tuple, kw: dict, stats: tuple | None = None) -> di
 
 class KvParams(ctypes.Structure):
     _fields_ = [("scale", ctypes.c_float), ("inv_levels", ctypes.c_float),
-                ("len_shift_blocks", ctypes.c_int)]
+                ("len_shift_blocks", ctypes.c_int), ("drop_last_split", ctypes.c_int)]
 
 
 def kernel_params(*, scale: float) -> KvParams:
     """The kernel's run-time parameters: the score scale, the int8 level
-    step 1/127 (rounded to fp32, as the plain version's) and a length
-    shift of 0 blocks (:func:`planted_params` plants faults through them
-    without touching the source)."""
-    return KvParams(scale, 1.0 / 127.0, 0)
+    step 1/127 (rounded to fp32, as the plain version's), a length shift
+    of 0 blocks and no split dropped from the merge
+    (:func:`planted_params` plants faults through them without touching
+    the source)."""
+    return KvParams(scale, 1.0 / 127.0, 0, 0)
 
 
 #: The faults :func:`planted_params` plants.
-FAULTS = ("len_one_block_short", "divisor_128")
+FAULTS = ("len_one_block_short", "divisor_128", "drop_last_split")
 
 
 def planted_params(fault: str):
     """A stand-in for :func:`kernel_params` with ``fault`` planted: the
-    length mask one block short, or the int8 level step 1/128 for 1/127.
-    A check rebinds ``kernel_params`` to it, and must then fail."""
+    length mask one block short, the int8 level step 1/128 for 1/127, or
+    the merge skipping each row's last split. A check rebinds
+    ``kernel_params`` to it, and must then fail."""
     if fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}, not in {FAULTS}")
     clean = kernel_params
@@ -126,11 +131,20 @@ def planted_params(fault: str):
         p = clean(**kw)
         if fault == "len_one_block_short":
             p.len_shift_blocks = -1
-        else:
+        elif fault == "divisor_128":
             p.inv_levels = 1.0 / 128.0
+        else:
+            p.drop_last_split = 1
         return p
 
     return faulty
+
+
+def grid(k_resid: torch.Tensor) -> tuple[int, int]:
+    """(CTAs, splits per (b, kv head)) of one launch's split kernel on
+    these residuals: one CTA per (cache block, b, kv head)."""
+    b, hkv, nblk, _, _ = k_resid.shape
+    return nblk * b * hkv, nblk
 
 
 def random_inputs(seed: int, b: int, h: int, hkv: int, dh: int, nblk: int, blk: int,
@@ -159,7 +173,7 @@ def random_inputs(seed: int, b: int, h: int, hkv: int, dh: int, nblk: int, blk: 
 @functools.cache
 def _entry():
     fn = _build.library().lib.repro_rcll_kv_decode
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
@@ -185,6 +199,8 @@ def _check_inputs(q, k_resid, k_anchor, k_scale, v_resid, v_anchor, v_scale, len
     if h // hkv > MAX_REP or dh > MAX_HEAD_DIM:
         raise ValueError(f"the kernel takes at most {MAX_REP} query heads per kv head "
                          f"and head dim {MAX_HEAD_DIM}")
+    if b * hkv > 65535:
+        raise ValueError(f"the kernel takes at most 65535 (b, kv head) pairs, got {b * hkv}")
     tensors = (q, k_resid, k_anchor, k_scale, v_resid, v_anchor, v_scale, length)
     if any(t.device != q.device for t in tensors):
         raise ValueError("all inputs must be on one device")
@@ -197,7 +213,9 @@ def rcll_kv_decode(q, k_resid, k_anchor, k_scale, v_resid, v_anchor, v_scale, le
     rows' softmax max and denominator (B, H) f32.
 
     CPU tensors take :func:`rcll_kv_decode_ref`; CUDA tensors launch the
-    kernel or raise.
+    kernel or raise (also when a cache block's K and V tiles do not fit
+    in the card's shared memory). A call keeps no state between
+    launches, so it can be captured in a CUDA graph and replayed.
     """
     args = (q, k_resid, k_anchor, k_scale, v_resid, v_anchor, v_scale, length)
     dev = q.device
@@ -214,13 +232,16 @@ def rcll_kv_decode(q, k_resid, k_anchor, k_scale, v_resid, v_anchor, v_scale, le
     out = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
     m = torch.empty((b, h), dtype=torch.float32, device=dev)
     den = torch.empty((b, h), dtype=torch.float32, device=dev)
+    # each cache block's partial (acc, m, l) of each row, merged by the second kernel
+    ws = torch.empty((b * h * nblk * (dh + 2),), dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 30)(*(s for t in args[1:7] for s in t.stride()))
     params = kernel_params(scale=scale)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry()(_RESID_KIND[k_resid.dtype], *(t.data_ptr() for t in args),
-                      out.data_ptr(), m.data_ptr(), den.data_ptr(), b, hkv, h // hkv, nblk,
-                      blk, dh, ctypes.addressof(strides), ctypes.addressof(params), stream)
+                      out.data_ptr(), m.data_ptr(), den.data_ptr(), ws.data_ptr(), b, hkv,
+                      h // hkv, nblk, blk, dh, ctypes.addressof(strides),
+                      ctypes.addressof(params), stream)
     _build.check_rc(rc, "rcll_kv_decode")
     _WRAPPER.launches += 1
     return (out, m, den) if return_stats else out

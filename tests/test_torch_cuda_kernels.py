@@ -61,6 +61,12 @@ def test_cell_tables_kernel_bit_identical(cuda_device, n, dim, seed):
                            c.view(torch.int32) if c.dtype == torch.float32 else c)
 
 
+def _tiles_on(t, kw, dev):
+    """make_tiles' tables as K2's positional arguments on ``dev``, and
+    its keyword arguments with the occupied counts there too."""
+    return tuple(x.to(dev) for x in t.values()), dict(kw, counts=kw["counts"].to(dev))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,scheme,records,layout", [
     (2, WCSPH, "fp16", {}), (2, DAM, "fp32", {}), (2, DAM, "bf16", {}), (3, WCSPH, "fp16", {}),
@@ -75,17 +81,37 @@ def test_cell_tables_kernel_bit_identical(cuda_device, n, dim, seed):
 def test_rcll_force_kernel_within_rounding_bound(cuda_device, dim, scheme, records, layout):
     seed = 5 + dim if not layout else 11 + dim
     t, kw = make_tiles(seed, dim, scheme, records, n=8000 if dim == 2 else 6000, **layout)
-    n_occ = (t["m"] != 0).sum(dim=1)
+    n_occ = kw["counts"]
     if layout.get("tight_cap"):
         assert int((n_occ == t["m"].shape[1]).sum()) > 0
     if layout.get("hole"):
         assert int((n_occ[:-1] == 0).sum()) > 0
-    t = {k: x.to(cuda_device) for k, x in t.items()}
+    args, kw = _tiles_on(t, kw, cuda_device)
     before = trf.rcll_force.launches
     # raises unless every element is within rounding_bound and each
     # output's normwise difference over occupied slots within NORMWISE_LIMIT
-    trf.check_against_plain(tuple(t.values()), kw)
+    trf.check_against_plain(args, kw)
     assert trf.rcll_force.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,scheme,records", [(2, WCSPH, "fp16"), (2, DAM, "fp32"),
+                                                (3, dict(DAM, body_force=()), "bf16")])
+def test_rcll_force_kernel_walks_massless_particles(cuda_device, dim, scheme, records):
+    """A massless particle in the middle of a row and one in a row's last
+    occupied slot are occupied slots: with the binning's counts the kernel
+    agrees with the plain version at every slot. Given the occupied count
+    by mass (m != 0) instead, as an occupancy-by-mass kernel would take it,
+    the row's last particle drops out of every sum and the check fails."""
+    t, kw = make_tiles(70 + dim, dim, scheme, records, n=8000 if dim == 2 else 6000,
+                       massless=True)
+    args, kw = _tiles_on(t, kw, cuda_device)
+    assert int((trf.occupied_slots(args[3], kw["counts"]) & (args[3] == 0)).sum()) == 2
+    trf.check_against_plain(args, kw)
+    by_mass = (args[3] != 0).sum(dim=1).to(torch.int32)
+    assert not torch.equal(by_mass, kw["counts"])
+    with pytest.raises(AssertionError, match="disagrees"):
+        trf.check_against_plain(args, dict(kw, counts=by_mass))
 
 
 @pytest.mark.cuda
@@ -95,10 +121,10 @@ def test_check_against_plain_fails_a_planted_fault(cuda_device, monkeypatch, fau
     EOS constant 1% off (at taylor_green's c0 and mu), or the last
     occupied slot of every neighbor tile skipped."""
     t, kw = make_tiles(7, 2, dict(c0=10.0, rho0=1.0, mu=0.05), "fp16", n=8000)
-    t = {k: x.to(cuda_device) for k, x in t.items()}
+    args, kw = _tiles_on(t, kw, cuda_device)
     monkeypatch.setattr(trf, "kernel_params", trf.planted_params(fault))
     with pytest.raises(AssertionError, match="disagrees"):
-        trf.check_against_plain(tuple(t.values()), kw)
+        trf.check_against_plain(args, kw)
 
 
 @pytest.mark.parametrize("scale", [1.0, 1.0 + 1e-3])
@@ -123,10 +149,11 @@ def test_check_against_plain_flags_a_wrong_output(monkeypatch, scale):
 @pytest.mark.cuda
 def test_wrapper_rejects_wrong_dtype_on_card(cuda_device):
     t, kw = make_tiles(3, 2, WCSPH, "fp16", n=2000)
-    t = {k: x.to(cuda_device) for k, x in t.items()}
-    t["shift"] = t["shift"].to(torch.int32)
+    args, kw = _tiles_on(t, kw, cuda_device)
     with pytest.raises(ValueError, match="shift"):
-        trf.rcll_force(*t.values(), **kw)
+        trf.rcll_force(args[0], args[1].to(torch.int32), *args[2:], **kw)
+    with pytest.raises(ValueError, match="counts"):
+        trf.rcll_force(*args, **dict(kw, counts=None))
 
 
 # --------------------------------------------------------------------------
@@ -215,15 +242,138 @@ def test_gradient_check_fails_a_planted_fault(cuda_device, monkeypatch, fault):
 # --------------------------------------------------------------------------
 # K6 (RCLL-KV decode) and K7 (flash prefill)
 # --------------------------------------------------------------------------
+KV_CASES = {  # b, h, hkv, dh, nblk, blk, residuals, lengths, heads-last views
+    "int8": (3, 24, 8, 128, 5, 128, torch.int8, [1, 513, 640], True),
+    "fp16": (3, 24, 8, 128, 5, 128, torch.float16, [1, 513, 640], False),
+    "bf16": (3, 24, 8, 128, 5, 128, torch.bfloat16, [1, 513, 640], True),
+    "all_rows_empty": (3, 24, 8, 128, 5, 128, torch.int8, [0, 0, 0], True),
+    "full_beside_empty": (3, 24, 8, 128, 5, 128, torch.int8, [0, 640, 0], True),
+    "blk256": (2, 8, 2, 64, 3, 256, torch.float16, [700, 255], False),
+    "dh16": (2, 6, 2, 16, 4, 128, torch.int8, [500, 129], False),
+    "dh24_plain_loads": (2, 4, 2, 24, 3, 128, torch.int8, [300, 129], False),
+    "nblk1": (3, 8, 8, 128, 1, 128, torch.bfloat16, [128, 1, 77], True),
+    "path_ragged": (4, 24, 8, 128, 10, 128, torch.int8, [1152, 1153, 64, 65], True),
+    "rep8_blk256_fp16": (2, 16, 2, 128, 2, 256, torch.float16, [512, 300], True),
+    # 1100 cache blocks: the merge walks 1100 partials a row
+    "long_cache": (1, 3, 1, 128, 1100, 128, torch.int8, [140000], True),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("resid,heads_last", [(torch.int8, True), (torch.float16, False),
-                                              (torch.bfloat16, True)])
-def test_kv_decode_kernel_within_rounding_bound(cuda_device, resid, heads_last):
-    args = tkv.random_inputs(11, 3, 24, 8, 128, 5, 128, resid, [1, 513, 640],
+@pytest.mark.parametrize("case", list(KV_CASES))
+def test_kv_decode_kernel_within_rounding_bound(cuda_device, case):
+    b, h, hkv, dh, nblk, blk, resid, lengths, heads_last = KV_CASES[case]
+    args = tkv.random_inputs(11, b, h, hkv, dh, nblk, blk, resid, lengths,
                             heads_last=heads_last, device=cuda_device)
     before = tkv.rcll_kv_decode.launches
     tkv.check_against_plain(args, {})
     assert tkv.rcll_kv_decode.launches == before + 1
+    if not any(lengths):
+        out, m, l = tkv.rcll_kv_decode(*args, return_stats=True)
+        assert not bool(out.any()) and bool((m == tkv.NEG_INF).all()) and not bool(l.any())
+
+
+@pytest.mark.cuda
+def test_kv_decode_refuses_a_block_past_shared_memory(cuda_device):
+    """A CTA holds a whole cache block's K and V tiles: 1024 fp16 keys of
+    128 dims (~0.5 MB) do not fit, and the wrapper raises, launching
+    nothing; the next call on blocks that fit is not disturbed."""
+    args = tkv.random_inputs(11, 1, 2, 1, 128, 1, 1024, torch.float16, [1024],
+                             device=cuda_device)
+    before = tkv.rcll_kv_decode.launches
+    with pytest.raises(RuntimeError, match="rcll_kv_decode"):
+        tkv.rcll_kv_decode(*args)
+    assert tkv.rcll_kv_decode.launches == before
+    tkv.check_against_plain(tkv.random_inputs(11, 1, 2, 1, 128, 8, 128, torch.float16, [1024],
+                                              device=cuda_device), {})
+
+
+@pytest.mark.parametrize("fault", tkv.FAULTS)
+def test_kv_planted_params_change_one_field(fault):
+    clean = tkv.kernel_params(scale=0.125)
+    planted = tkv.planted_params(fault)(scale=0.125)
+    changed = [f for f, _ in tkv.KvParams._fields_
+               if getattr(clean, f) != getattr(planted, f)]
+    assert changed == [{"len_one_block_short": "len_shift_blocks", "divisor_128": "inv_levels",
+                        "drop_last_split": "drop_last_split"}[fault]]
+
+
+def _path_inputs(dev, lengths=(1152, 1152, 1152, 1152)):
+    """K6's inputs at the served request's last decode step (llama3.2-3b,
+    B 4, 10 blocks of 128 int8 keys, strided views of the model's cache)."""
+    return tkv.random_inputs(17, 4, 24, 8, 128, 10, 128, torch.int8, list(lengths),
+                             heads_last=True, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [(1152,) * 4, (1153, 0, 37, 1280)])
+def test_kv_decode_kernel_is_deterministic(cuda_device, lengths):
+    """Two launches on the same inputs give the same bits: the merge takes
+    the splits in a fixed order."""
+    args = _path_inputs(cuda_device, lengths)
+    first = tkv.rcll_kv_decode(*args, return_stats=True)
+    for _ in range(3):
+        again = tkv.rcll_kv_decode(*args, return_stats=True)
+        for x, y in zip(first, again):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_kv_decode_kernel_replays_in_a_cuda_graph(cuda_device):
+    """A launch captured in a CUDA graph and replayed twice gives the
+    eager launch's bits (a call keeps no state between launches)."""
+    args = _path_inputs(cuda_device, (1152, 1153, 640, 1))
+    eager = tkv.rcll_kv_decode(*args, return_stats=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tkv.rcll_kv_decode(*args, return_stats=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tkv.rcll_kv_decode.launches
+    with torch.cuda.graph(graph):
+        captured = tkv.rcll_kv_decode(*args, return_stats=True)
+    assert tkv.rcll_kv_decode.launches == before + 1
+    for _ in range(2):
+        for x in captured:
+            x.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(eager, captured):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_kv_decode_graphs_replay_after_other_launches(cuda_device):
+    """Two graphs captured on one stream, one at B * Hkv = 32 and one at
+    B * Hkv = 320, replayed in the other order after an eager launch at
+    the larger shape: each gives its eager bits (no state is shared
+    between calls)."""
+    small = _path_inputs(cuda_device, (1152, 1153, 640, 1))
+    large = tkv.random_inputs(18, 40, 24, 8, 128, 2, 128, torch.int8,
+                              [(37 * i) % 257 for i in range(40)], heads_last=True,
+                              device=cuda_device)
+    eager = [tkv.rcll_kv_decode(*a, return_stats=True) for a in (small, large)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in (small, large):
+            tkv.rcll_kv_decode(*a, return_stats=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graphs, captured = [], []
+    for a in (small, large):
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            captured.append(tkv.rcll_kv_decode(*a, return_stats=True))
+    tkv.rcll_kv_decode(*large, return_stats=True)
+    for i in (1, 0):
+        for x in captured[i]:
+            x.fill_(float("nan"))
+        graphs[i].replay()
+    torch.cuda.synchronize()
+    for want, got in zip(eager, captured):
+        for x, y in zip(want, got):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -30,13 +30,16 @@ DAM = dict(c0=14.142135623730951, rho0=1.0, eos="tait", gamma=7.0,
 
 
 def make_tiles(seed, dim, scheme, records, n=None, *, rel="fp16", tight_cap=False,
-               hole=False):
-    """CPU tensors for one K2 call (and its keyword arguments) from a
-    random cloud advanced by a fraction of a Verlet skin, so some cell
-    shifts are non-zero. ``rel`` is the storage of the relative
-    coordinates; ``tight_cap`` sets the cell capacity to the fullest
-    cell's count, so some rows are full; ``hole`` removes the particles of
-    a central box, so some cells away from the sentinel are empty."""
+               hole=False, massless=False):
+    """CPU tensors for one K2 call (and its keyword arguments, with the
+    binning's occupied ``counts``) from a random cloud advanced by a
+    fraction of a Verlet skin, so some cell shifts are non-zero. ``rel`` is
+    the storage of the relative coordinates; ``tight_cap`` sets the cell
+    capacity to the fullest cell's count, so some rows are full; ``hole``
+    removes the particles of a central box, so some cells away from the
+    sentinel are empty; ``massless`` zeroes the mass of the particle in
+    slot 1 of the first row with at least 3 particles and of the particle
+    in the last occupied slot of the next row with at least 2."""
     rng = np.random.default_rng(seed)
     n = n or (700 if dim == 2 else 1500)
     ds = (1.0 / n) ** (1.0 / dim)
@@ -61,6 +64,9 @@ def make_tiles(seed, dim, scheme, records, n=None, *, rel="fp16", tight_cap=Fals
     v = torch.as_tensor((rng.normal(size=(n, dim)) * 0.3).astype(np.float32))
     rho = torch.as_tensor((1.0 + 0.01 * rng.normal(size=n)).astype(np.float32))
     m = torch.full((n,), 1.0 / n)
+    if massless:
+        for row, slot in massless_slots(b):
+            m[b.table[row, slot]] = 0.0
     sch = tsch.Scheme(**scheme)
     tab = lambda f, fill=0.0: tops._typed_row_table(b, f, f.dtype, fill)
     shift = dom.wrap_cell_delta(rc.cell_xy - b.cell_xy).to(torch.int16)
@@ -69,7 +75,18 @@ def make_tiles(seed, dim, scheme, records, n=None, *, rel="fp16", tight_cap=Fals
     return dict(
         rel=cm(rc.rel), shift=cm(shift), v=cm(v.to(rdt)), m=tab(m.to(rdt)),
         inv_rho=tab(1.0 / rho, 1.0 / sch.rho0), nb_ids=tops.nb_with_sentinel(dom, "cpu"),
-    ), dict(hc_phys=tuple(dom.cell_sizes), h=dom.h, dim=dim, scheme=sch)
+    ), dict(hc_phys=tuple(dom.cell_sizes), h=dom.h, dim=dim, scheme=sch,
+            counts=tops.occupied_counts(b))
+
+
+def massless_slots(b):
+    """(row, slot) of the particles ``make_tiles(massless=True)`` makes
+    massless: slot 1 of the first row with at least 3 particles (the middle
+    of a row) and the last occupied slot of the next row with at least 2."""
+    counts = b.counts.clamp(max=b.table.shape[1])
+    mid = int(torch.nonzero(counts >= 3)[0])
+    last = int(next(r for r in torch.nonzero(counts >= 2)[:, 0].tolist() if r > mid))
+    return (mid, 1), (last, int(counts[last]) - 1)
 
 
 def make_nnps_tiles(seed, dim, n, storage="fp16", periodic=False, cell_factor=1.0):

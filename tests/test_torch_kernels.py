@@ -163,7 +163,28 @@ def test_rcll_force_ref_within_rounding_bound_of_pallas(dim, scheme, records):
     """The plain version against the Pallas kernel on identical tiles.
     Jitted XLA contracts multiply-adds like nvcc, so the gap must sit
     inside ``rounding_bound`` — the tolerance the CUDA kernel meets."""
-    t, kw = make_tiles(7 + dim, dim, scheme, records)
+    _assert_ref_within_rounding_bound_of_pallas(*make_tiles(7 + dim, dim, scheme, records),
+                                                scheme)
+
+
+@pytest.mark.parametrize("dim,scheme,records", [
+    (2, WCSPH, "fp16"), (3, dict(DAM, body_force=()), "fp32"),
+])
+def test_rcll_force_ref_with_massless_particles_within_rounding_bound_of_pallas(
+        dim, scheme, records):
+    """Tables with a massless particle in the middle of a row and one in a
+    row's last occupied slot (the JAX kernel has no occupancy mask, and the
+    JAX tests run massless particles): the plain version still agrees with
+    the Pallas kernel, and the massless slots have outputs of their own."""
+    t, kw = make_tiles(17 + dim, dim, scheme, records, massless=True)
+    occ = trf.occupied_slots(t["m"], kw["counts"])
+    assert int((occ & (t["m"] == 0)).sum()) == 2
+    d_t, a_t = _assert_ref_within_rounding_bound_of_pallas(t, kw, scheme)
+    assert float(d_t[occ & (t["m"] == 0)].abs().min()) > 0.0
+
+
+def _assert_ref_within_rounding_bound_of_pallas(t, kw, scheme):
+    dim = kw["dim"]
     d_t, a_t, d_abs, a_abs = trf.rcll_force_ref(*t.values(), **kw, abs_sums=True)
     conv = lambda x: jnp.asarray(x.view(torch.int16).numpy()).view(jnp.bfloat16) \
         if x.dtype == torch.bfloat16 else jnp.asarray(x.numpy())
@@ -175,6 +196,7 @@ def test_rcll_force_ref_within_rounding_bound_of_pallas(dim, scheme, records):
     assert float(d_abs.max()) > 0 and float(a_abs.max()) > 0
     assert np.all(np.abs(np.asarray(d_j) - d_t.numpy()) <= trf.rounding_bound(d_abs, dim).numpy())
     assert np.all(np.abs(np.asarray(a_j) - a_t.numpy()) <= trf.rounding_bound(a_abs, dim).numpy())
+    return d_t, a_t
 
 
 def test_wrappers_reject_bad_inputs_before_launch():

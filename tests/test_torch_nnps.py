@@ -266,3 +266,46 @@ def test_gradient_test_particles_match_jax():
             np.asarray(jcases.cubic_gradient_x(xj)), tcases.cubic_gradient_x(xt))
         np.testing.assert_allclose(tcases.cubic_field(torch.as_tensor(xt)).numpy(),
                                    np.asarray(jcases.cubic_field(xj)), rtol=1e-15)
+
+
+def test_rcll_search_mirrors_jax_cell_overflow():
+    """ROADMAP Queue 3 entry A, recorded, not fixed: at the hypothesis
+    example of ``tests/test_nnps.py::test_property_rcll_equals_alllist``
+    (n = 64, seed = 2147483646, not periodic) cell (0, 0) holds 15
+    particles, one more than ``default_capacity``'s 14, so the dense-table
+    RCLL search drops particle 63 and makes 15 wrong determinations
+    against the all-list search. The port does the same as JAX: the same
+    lists, the same count, the same dropped particle and a binning
+    overflow of 1."""
+    n, seed = 64, 2147483646
+    rng = np.random.default_rng(seed)
+    ds = (1.0 / n) ** 0.5
+    spec = dict(lo=(0.0, 0.0), hi=(1.0, 1.0), h=1.2 * ds, periodic=(False, False))
+    dj, dt = jd.Domain(**spec), td.Domain(**spec)
+    xn_j = dj.normalize(jnp.asarray(rng.uniform(0, 1, (n, 2))))
+    xn_t = torch.tensor(np.asarray(xn_j))
+    k = 80
+    aj = jnnps.all_list_neighbors(xn_j, dj.radius_norm, dtype=jnp.float32, k=k)
+    at = tnnps.all_list_neighbors(xn_t, dt.radius_norm, dtype=torch.float32, k=k)
+    _assert_lists_equal(aj, at)
+    st_j = jrcll.init_state(dj, xn_j, dtype=jnp.float32)
+    st_t = trcll.init_state(dt, xn_t, dtype=torch.float32)
+    _equal(st_j.cell_xy, st_t.cell_xy)
+    rj = jnnps.rcll_neighbors(dj, st_j.rel, st_j.cell_xy, dtype=jnp.float32, k=k)
+    rt = tnnps.rcll_neighbors(dt, st_t.rel, st_t.cell_xy, dtype=torch.float32, k=k)
+    _assert_lists_equal(rj, rt)
+    assert int(at.count.max()) < k  # no k overflow: the test's comparison applies
+    assert int(jnnps.count_wrong_determinations(aj, rj)) == 15
+    assert int(tnnps.count_wrong_determinations(at, rt)) == 15
+    cap = tcells.default_capacity(dt, n)
+    assert cap == jcells.default_capacity(dj, n) == 14
+    bj = jcells.bin_by_cell_id(dj, dj.flat_cell_id(st_j.cell_xy), st_j.cell_xy, cap)
+    bt = tcells.bin_by_cell_id(dt, dt.flat_cell_id(st_t.cell_xy), st_t.cell_xy, cap)
+    for f in bj._fields:
+        _equal(getattr(bj, f), getattr(bt, f))
+    assert int(bt.overflow) == 1 and int(bt.counts.max()) == 15
+    kept = bt.table[bt.table >= 0]
+    assert sorted(set(range(n)) - set(kept.tolist())) == [63]
+    # the dropped particle is missing from each of its 15 neighbors' lists
+    assert int(((at.idx == 63) & at.mask).sum()) == 15
+    assert not bool(((rt.idx == 63) & rt.mask).any())
