@@ -10,50 +10,83 @@
 // row keeps m at -1e30 and l at 0 and writes 0 (the TPU kernel's guard).
 // Rows and columns past Lq / Lk are masked, so any length works; K/V tiles
 // that lie wholly above the diagonal are skipped (they add exp(-inf) = 0).
+// The output is fp32 (B, H, Lq, Dh), written once per row by one CTA: no
+// atomics, the same bits on every launch.
 //
-// Design: one block per (32-row query tile, b*H + h); 4 threads per query row
-// (a quad), each owning Dh/4 of the row's dimensions in 16-byte groups, so a
-// dot product is 4 partial sums joined by two quad shuffles and the P.V
-// update needs no communication. K and V tiles of 32 keys are staged in
-// shared memory as fp32 (converted once from bf16), read as float4 and
-// broadcast to the 8 rows of a warp. fp32 FMA on the CUDA cores and the
-// accurate expf (no fast math): no tensor cores yet.
+// bf16 inputs (the serving path) take the tensor cores (namespace tc). One CTA
+// per (b*H + h, 128-row query tile), the late (heavy) causal tiles launched
+// first: two consumer warpgroups of 64 rows and one producer warp. The
+// producer loads Q once and K/V tiles of 64 keys round a two-stage ring with
+// TMA (tensor maps built per call in the C entry point, passed as
+// __grid_constant__ parameters, so a launch replays in a CUDA graph; swizzled
+// 128 B, or 64/32 B for Dh 32/16) and mbarriers. Per tile a consumer
+// warpgroup computes S = Q K^T with wgmma m64n64k16 (bf16 x bf16 products are
+// exact, summed in fp32), masks only diagonal and ragged tiles, and runs the
+// online softmax in fp32 registers on the accumulator fragments with the
+// accurate expf (no fast math). O += P V keeps P's fp32 weights: each weight
+// is split exactly into three bf16 parts,
+//   hi = bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid),
+// each subtraction exact in fp32, and 3 x 8 significand bits cover fp32's
+// 24, so hi + mid + lo == p for every weight of at least 2^-110; below that lo falls under bf16's range
+// and the error is at most 2^-134 absolute (tests/test_torch_lm_kernels.py
+// holds the plain split, flash_attention.split_bf16x3, to both). V is bf16
+// already, so three wgmma m64nDHk16 with A = P_hi, P_mid, P_lo from registers
+// (the S accumulator fragment is the A fragment's layout, as in
+// FlashAttention-3) and B = the V tile, MN-major, give exact products summed
+// in fp32. Rounding P to bf16 once, as FlashAttention does, is another
+// function (the check plants it as p_hi_only). A warpgroup runs S, the
+// softmax and P V of a tile in turn; the two warpgroups overlap each other.
+// Overlapping a tile's softmax with the previous tile's P V inside one
+// warpgroup needs more registers than the 168 a thread of this CTA gets
+// (ptxas then serializes the wgmmas; it measured slower, PERF.md PR 17).
 //
-// Bound on the H100: operations. The causal product is ~2 L^2 Dh H B flops
-// (2.6e10 for llama3.2-3b at B 4, L 1024). With bf16 inputs the q.k half is
-// bf16 products summed in fp32, which the bf16 tensor cores compute exactly
-// (0.013 ms at 989 TFLOP/s), and the p.v half has fp32 weights (0.19 ms at
-// the 67 TFLOP/s fp32 rate): 0.21 ms. The bytes (q, k, v in, out) take
-// ~0.03 ms. This kernel does all of it on the CUDA cores in fp32.
+// fp32 inputs keep the CUDA-core kernel (namespace simt): bf16 tensor cores
+// cannot take fp32 q and k exactly. One block per (32-row query tile,
+// b*H + h); 4 threads per query row, K/V tiles of 32 keys staged as fp32 in
+// shared memory, fp32 FMA.
+//
+// Bound on the H100 (chip_smoke.py k7_work): operations. The causal product
+// is 4 Dh operations per visible (query, key) pair, 2.58e10 for llama3.2-3b at
+// B 4, H 24, L 1024. At fp32 accuracy on bf16 inputs q.k takes one bf16
+// tensor-core pass and p.v three: 4 x 1.29e10 at 989 TFLOP/s = 0.052 ms. The
+// bytes (q, k, v in, out in fp32) take 0.028 ms at 3.35 TB/s.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 32;               // query rows per block
-constexpr int LANES = 4;             // threads per query row
-constexpr int BK = 32;               // keys per K/V tile
-constexpr int THREADS = BQ * LANES;  // 128
 
 struct FlashParams {
   float scale;
   int causal;
   int causal_shift;  // 0; a check plants 1 to let one future key in
+  int p_hi_only;     // 0; a check plants 1 to round P to bf16 once (bf16 path)
 };
 
 struct Strides {  // element strides of a (B, heads, L, Dh) view; Dh stride 1
   long long b, h, l;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// --------------------------------------------------------------------------
+// fp32 inputs: CUDA cores
+// --------------------------------------------------------------------------
+namespace simt {
 
-template <int DH, typename T>
+constexpr int BQ = 32;               // query rows per block
+constexpr int LANES = 4;             // threads per query row
+constexpr int BK = 32;               // keys per K/V tile
+constexpr int THREADS = BQ * LANES;  // 128
+
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 float* __restrict__ out, int H, int rep, int Lq, int Lk, Strides qs,
-                 Strides ks, Strides vs, FlashParams p) {
+    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, int H, int rep, int Lq,
+                 int Lk, Strides qs, Strides ks, Strides vs, FlashParams p) {
   static_assert(DH % 16 == 0, "Dh must be a multiple of 16");
   constexpr int GROUPS = DH / 16;  // float4 groups per thread
   __shared__ __align__(16) float s_k[BK][DH];
@@ -74,7 +107,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 16 * c + 4 * lane + e;
-      qv[c][e] = row_ok ? to_f32(q[b * qs.b + h * qs.h + i * qs.l + d]) : 0.0f;
+      qv[c][e] = row_ok ? q[b * qs.b + h * qs.h + i * qs.l + d] : 0.0f;
       acc[c][e] = 0.0f;
     }
   }
@@ -85,16 +118,16 @@ __global__ void __launch_bounds__(THREADS)
   if (p.causal) last_key = min(last_key, q0 + BQ - 1 + offset);
   const int n_tiles = last_key < 0 ? 0 : last_key / BK + 1;
 
-  const T* kb = k + b * ks.b + g * ks.h;
-  const T* vb = v + b * vs.b + g * vs.h;
+  const float* kb = k + b * ks.b + g * ks.h;
+  const float* vb = v + b * vs.b + g * vs.h;
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile is consumed
     for (int e = tid; e < BK * DH; e += THREADS) {
       const int j = e / DH, d = e % DH;
       const bool ok = k0 + j < Lk;
-      s_k[j][d] = ok ? to_f32(kb[(k0 + j) * ks.l + d]) : 0.0f;
-      s_v[j][d] = ok ? to_f32(vb[(k0 + j) * vs.l + d]) : 0.0f;
+      s_k[j][d] = ok ? kb[(k0 + j) * ks.l + d] : 0.0f;
+      s_v[j][d] = ok ? vb[(k0 + j) * vs.l + d] : 0.0f;
     }
     __syncthreads();
 
@@ -155,35 +188,498 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int DH, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, float* out, int B, int H,
-                   int Hkv, int Lq, int Lk, const long long* st, FlashParams p,
-                   cudaStream_t stream) {
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, float* out, int B, int H, int Hkv,
+                   int Lq, int Lk, const long long* st, FlashParams p, cudaStream_t stream) {
   const dim3 grid((Lq + BQ - 1) / BQ, B * H);
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]};
-  flash_kernel<DH, T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), out, H,
-      H / Hkv, Lq, Lk, qs, ks, vs, p);
+  flash_kernel<DH><<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      out, H, H / Hkv, Lq, Lk, qs, ks, vs, p);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(int dh, const void* q, const void* k, const void* v, float* out, int B,
-                        int H, int Hkv, int Lq, int Lk, const long long* st, FlashParams p,
-                        cudaStream_t s) {
+}  // namespace simt
+
+// --------------------------------------------------------------------------
+// bf16 inputs: TMA, mbarriers and wgmma
+// --------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BQ = 128;                   // query rows per CTA
+constexpr int WG_ROWS = 64;               // query rows per consumer warpgroup
+constexpr int BK = 64;                    // keys per K/V tile
+constexpr int STAGES = 2;                 // K/V ring depth
+constexpr int CONSUMERS = 2 * 128;        // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
+
+template <int DH>
+struct Tile {
+  static constexpr int SW = DH * 2 < 128 ? DH * 2 : 128;  // swizzle span = bytes of a box row
+  static constexpr int SWE = SW / 2;                      // bf16 elements of a box row
+  static constexpr int NCB = DH / SWE;                    // boxes across Dh
+  static constexpr int KPB = SW / 32;                     // k16 steps within a box
+  static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // wgmma descriptor code
+  static constexpr int Q_BYTES = BQ * DH * 2;
+  static constexpr int KV_BYTES = BK * DH * 2;  // one of K, V
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BAR_BYTES = (2 * STAGES + 1) * 8;
+  // 1024 of slack to align the tiles to the 128 B swizzle's 1024 B period
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES + BAR_BYTES;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait for the phase of the given parity to complete. A pipeline stalled for
+// ~17 s (2^35 cycles) traps, so a fault surfaces as a failed launch, not a hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 35)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16 B units) and the swizzle code (1: 128 B, 2: 64 B, 3: 32 B).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (static_cast<uint64_t>(layout) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma (between its issue and its wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One k16 step of S = Q K^T: A (Q) and B (K) from shared memory, both K-major;
+// ``accumulate`` 0 overwrites d (the first step of a tile).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// One k16 step of O += P V at N = Dh: A (a bf16 part of P) from registers, B (V) from
+// shared memory, MN-major (transposed); always accumulates.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// Three bf16 parts of an fp32 pair, packed as the A fragment wants them (the
+// lower column in the low half): hi + mid + lo == x for |x| >= 2^-110.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float r0 = x0 - __low2float(h), r1 = x1 - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Key tiles that hold a key some row of [row_lo, row_end) may see.
+__device__ __forceinline__ int tiles_for(int row_lo, int row_end, int Lk, int offset,
+                                         const FlashParams& p) {
+  if (row_lo >= row_end) return 0;
+  int last = Lk - 1;
+  if (p.causal) last = min(last, row_end - 1 + offset);
+  return last < 0 ? 0 : last / BK + 1;
+}
+
+// Issue S = Q K^T of one tile (Dh / 16 k16 steps) for this warpgroup's 64 rows.
+template <int DH>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t qa, uint32_t ks) {
+  using T = Tile<DH>;
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t koff = (kk % T::KPB) * 32;  // k16 step within a swizzled box
+    wgmma_ss_n64(sc,
+                 smem_desc(qa + (kk / T::KPB) * BQ * T::SW + koff, 16, 8 * T::SW, T::LAYOUT),
+                 smem_desc(ks + (kk / T::KPB) * BK * T::SW + koff, 16, 8 * T::SW, T::LAYOUT),
+                 kk > 0);
+  }
+}
+
+// Issue O += P V of one tile: per 16 keys, the hi, mid and lo parts of P.
+template <int DH>
+__device__ __forceinline__ void issue_pv(float (&o)[DH / 2], const uint32_t (&pa)[3][BK / 16][4],
+                                         uint32_t vs, int hi_only) {
+  using T = Tile<DH>;
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc) {
+    const uint64_t dv = smem_desc(vs + kc * 16 * T::SW, BK * T::SW, 8 * T::SW, T::LAYOUT);
+    wgmma_rs(o, pa[0][kc], dv);
+    if (!hi_only) {
+      wgmma_rs(o, pa[1][kc], dv);
+      wgmma_rs(o, pa[2][kc], dv);
+    }
+  }
+}
+
+struct Rows {
+  int r0, r1, cq;  // this thread's rows and first column in each 8-column group
+  float m0, m1, l0, l1;
+};
+
+// Scale and mask one tile's scores in place, fold them into the row state
+// (m, l) of rows r0 and r1 and leave exp(s - m_new) in sc; returns the
+// rescale factors of the two rows' accumulators. Only diagonal and ragged
+// tiles pay for the mask.
+__device__ __forceinline__ float2 online_softmax(float (&sc)[BK / 2], Rows& r, int k0, int row_lo,
+                                                 int Lq, int Lk, int offset,
+                                                 const FlashParams& p) {
+  const bool edge =
+      k0 + BK > Lk || row_lo + WG_ROWS > Lq || (p.causal && k0 + BK - 1 > row_lo + offset);
+  float mt0 = NEG_INF, mt1 = NEG_INF;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    float x = sc[i] * p.scale;
+    if (edge) {
+      const int row = (i & 2) ? r.r1 : r.r0;
+      const int col = k0 + 8 * (i / 4) + r.cq + (i & 1);
+      const bool keep = col < Lk && row < Lq && (!p.causal || col <= row + offset);
+      if (!keep) x = NEG_INF;
+    }
+    sc[i] = x;
+    if (i & 2) mt1 = fmaxf(mt1, x);
+    else mt0 = fmaxf(mt0, x);
+  }
+  const float mn0 = fmaxf(r.m0, quad_max(mt0)), mn1 = fmaxf(r.m1, quad_max(mt1));
+  const float2 corr = make_float2(expf(r.m0 - mn0), expf(r.m1 - mn1));
+  float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const float e = sc[i] > NEG_INF / 2 ? expf(sc[i] - ((i & 2) ? mn1 : mn0)) : 0.0f;
+    sc[i] = e;
+    if (i & 2) ps1 += e;
+    else ps0 += e;
+  }
+  r.l0 = r.l0 * corr.x + quad_sum(ps0);
+  r.l1 = r.l1 * corr.y + quad_sum(ps1);
+  r.m0 = mn0;
+  r.m1 = mn1;
+  return corr;
+}
+
+// P (exp(s - m) of one tile, fp32) as three bf16 A fragments of m64nDHk16:
+// the accumulator fragment of S is the A fragment's layout.
+__device__ __forceinline__ void split_p(const float (&sc)[BK / 2], uint32_t (&pa)[3][BK / 16][4]) {
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      split3(sc[8 * kc + 2 * j], sc[8 * kc + 2 * j + 1], pa[0][kc][j], pa[1][kc][j],
+             pa[2][kc][j]);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, float* __restrict__ out, int H,
+                       int rep, int Lq, int Lk, FlashParams p) {
+  using T = Tile<DH>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // Q: NCB boxes of BQ rows
+  const uint32_t skv = sq + T::Q_BYTES;                      // stage s: K boxes, then V boxes
+  const uint32_t bars = skv + STAGES * T::STAGE_BYTES;       // full[STAGES], empty[STAGES], q
+  const uint32_t qbar = bars + 16 * STAGES;
+  auto full = [&](int t) { return bars + 8 * (t % STAGES); };
+  auto empty = [&](int t) { return bars + 8 * (STAGES + t % STAGES); };
+  auto k_tile = [&](int t) { return skv + (t % STAGES) * T::STAGE_BYTES; };
+  auto parity = [](int t) { return static_cast<uint32_t>((t / STAGES) & 1); };
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H, g = h / rep;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // the heavy causal tiles first
+  const int offset = Lk - Lq + p.causal_shift;        // key j is kept when j <= i + offset
+  const int n_tiles = tiles_for(q0, min(q0 + BQ, Lq), Lk, offset, p);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer warp: one thread issues every load
+    if (tid == CONSUMERS && n_tiles > 0) {
+      mbar_expect_tx(qbar, T::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < T::NCB; ++c)
+        tma_load(sq + c * BQ * T::SW, &tq, qbar, c * T::SWE, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        if (t >= STAGES) mbar_wait(empty(t), parity(t) ^ 1);  // tile t - STAGES consumed
+        mbar_expect_tx(full(t), T::STAGE_BYTES);
+#pragma unroll
+        for (int c = 0; c < T::NCB; ++c) {
+          tma_load(k_tile(t) + c * BK * T::SW, &tk, full(t), c * T::SWE, t * BK, g, b);
+          tma_load(k_tile(t) + T::KV_BYTES + c * BK * T::SW, &tv, full(t), c * T::SWE, t * BK,
+                   g, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows [row_lo, row_lo + 64); this thread
+  // holds rows r0 and r0 + 8 and, in each 8-column group, columns cq and cq + 1
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  const int row_lo = q0 + WG_ROWS * wg;
+  Rows r{row_lo + 16 * warp + lane / 4, row_lo + 16 * warp + lane / 4 + 8, 2 * (lane % 4),
+         NEG_INF, NEG_INF, 0.0f, 0.0f};
+  const int my_tiles = tiles_for(row_lo, min(row_lo + WG_ROWS, Lq), Lk, offset, p);
+  const uint32_t qa = sq + WG_ROWS * wg * T::SW;
+
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+  if (my_tiles > 0) mbar_wait(qbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    mbar_wait(full(t), parity(t));
+    if (t < my_tiles) {  // uniform across the warpgroup
+      float sc[BK / 2];
+      uint32_t pa[3][BK / 16][4];
+      wgmma_fence();
+      issue_qk<DH>(sc, qa, k_tile(t));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      const float2 corr = online_softmax(sc, r, t * BK, row_lo, Lq, Lk, offset, p);
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) o[i] *= (i & 2) ? corr.y : corr.x;
+      split_p(sc, pa);
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv<DH>(o, pa, k_tile(t) + T::KV_BYTES, p.p_hi_only);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+    }
+    mbar_arrive(empty(t));  // this thread is done with tile t's stage
+  }
+
+  const float inv0 = 1.0f / (r.l0 > 0.0f ? r.l0 : 1.0f), inv1 = 1.0f / (r.l1 > 0.0f ? r.l1 : 1.0f);
+  float* ob = out + static_cast<long long>(bh) * Lq * DH;
+#pragma unroll
+  for (int i = 0; i < DH / 2; i += 2) {
+    const int row = (i & 2) ? r.r1 : r.r0;
+    if (row >= Lq) continue;
+    const float inv = (i & 2) ? inv1 : inv0;
+    *reinterpret_cast<float2*>(ob + static_cast<long long>(row) * DH + 8 * (i / 4) + r.cq) =
+        make_float2(o[i] * inv, o[i + 1] * inv);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A 4-d map (Dh, L, heads, B) of a bf16 view with element strides st = (b, h, l),
+// read in boxes of (swe, rows, 1, 1); rows past L read as zeros.
+template <int DH>
+bool make_map(CUtensorMap* map, const void* base, int L, int heads, int B, const long long* st,
+              int rows) {
+  using T = Tile<DH>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH), static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(T::SWE), static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = T::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, float* out, int B, int H, int Hkv,
+                   int Lq, int Lk, const long long* st, FlashParams p, cudaStream_t stream) {
+  using T = Tile<DH>;
+  CUtensorMap tq, tk, tv;
+  if (!make_map<DH>(&tq, q, Lq, H, B, st, BQ) || !make_map<DH>(&tk, k, Lk, Hkv, B, st + 3, BK) ||
+      !make_map<DH>(&tv, v, Lk, Hkv, B, st + 6, BK))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Lq + BQ - 1) / BQ);
+  flash_wgmma_kernel<DH><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, out, H, H / Hkv, Lq, Lk,
+                                                              p);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+template <typename Launch>
+cudaError_t dispatch_dh(int dh, Launch&& launch) {
   switch (dh) {
-    case 16: return launch<16, T>(q, k, v, out, B, H, Hkv, Lq, Lk, st, p, s);
-    case 32: return launch<32, T>(q, k, v, out, B, H, Hkv, Lq, Lk, st, p, s);
-    case 64: return launch<64, T>(q, k, v, out, B, H, Hkv, Lq, Lk, st, p, s);
-    case 128: return launch<128, T>(q, k, v, out, B, H, Hkv, Lq, Lk, st, p, s);
+    case 16: return launch(std::integral_constant<int, 16>{});
+    case 32: return launch(std::integral_constant<int, 32>{});
+    case 64: return launch(std::integral_constant<int, 64>{});
+    case 128: return launch(std::integral_constant<int, 128>{});
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16 (q, k and v alike). strides: q, k, v (b, head, l) each,
-// in elements; out is contiguous (B, H, Lq, Dh) fp32. Returns cudaGetLastError().
+// dtype: 0 fp32 (CUDA cores), 1 bf16 (tensor cores) (q, k and v alike). strides:
+// q, k, v (b, head, l) each, in elements; for bf16 the base addresses must be
+// 16-byte aligned and the strides multiples of 8 (TMA). out is contiguous
+// (B, H, Lq, Dh) fp32. Returns cudaGetLastError() (or the refusal's error).
 extern "C" int repro_flash_attention(int dtype, int dh, const void* q, const void* k,
                                      const void* v, void* out, int B, int H, int Hkv, int Lq,
                                      int Lk, const long long* strides, const void* params,
@@ -193,8 +689,13 @@ extern "C" int repro_flash_attention(int dtype, int dh, const void* q, const voi
   const FlashParams p = *static_cast<const FlashParams*>(params);
   const auto s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
-  if (dtype == 0) return dispatch_dh<float>(dh, q, k, v, o, B, H, Hkv, Lq, Lk, strides, p, s);
+  if (dtype == 0)
+    return dispatch_dh(dh, [&](auto d) {
+      return simt::launch<decltype(d)::value>(q, k, v, o, B, H, Hkv, Lq, Lk, strides, p, s);
+    });
   if (dtype == 1)
-    return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, B, H, Hkv, Lq, Lk, strides, p, s);
+    return dispatch_dh(dh, [&](auto d) {
+      return tc::launch<decltype(d)::value>(q, k, v, o, B, H, Hkv, Lq, Lk, strides, p, s);
+    });
   return cudaErrorInvalidValue;
 }

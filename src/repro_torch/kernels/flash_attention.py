@@ -6,8 +6,11 @@ flash_attention`` with the hand-written CUDA kernel
 query head's kv head (no repeated K/V), carries the online softmax in
 fp32, skips tiles wholly above the causal diagonal, masks rows and
 columns past the lengths (any L works) and gives 0 for a fully masked
-row, as the TPU kernel's guard does. Its bound on the H100 is the causal
-product's operations (see the source's note and PERF.md).
+row, as the TPU kernel's guard does. bf16 inputs take the tensor cores
+(TMA loads, ``wgmma`` for S = Q Kᵀ and, with P split exactly into three
+bf16 parts by :func:`split_bf16x3`, for O += P V); fp32 inputs take a
+CUDA-core kernel. Its bound on the H100 is the causal product's
+operations (see the source's note and PERF.md).
 
 :func:`flash_attention` launches the kernel for CUDA tensors and takes
 the plain version :func:`flash_attention_ref` (``kernels/ref.py::
@@ -28,6 +31,7 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
+_BF16_ROWS = 128  # query rows per CTA of the bf16 kernel
 _U32 = 2.0**-24  # fp32 unit roundoff
 
 
@@ -68,6 +72,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bhkd->bhqd", masked_softmax(s, valid), vf)
 
 
+def split_bf16x3(p: torch.Tensor) -> tuple:
+    """fp32 ``p`` as three bf16 parts, as the bf16 kernel feeds P to the
+    tensor cores: hi = bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid).
+    Each subtraction is exact in fp32, so hi + mid + lo == p for |p| >=
+    2^-110; below that lo leaves bf16's range and the sum is within
+    2^-134 of p."""
+    hi = p.to(torch.bfloat16)
+    rest = p - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
 def rounding_bound(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, valid: torch.Tensor,
                    scale: float, *, relative: bool = False) -> torch.Tensor:
     """Elementwise tolerance of two fp32 evaluations of attention that sum
@@ -83,6 +99,14 @@ def rounding_bound(qf: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor, valid: 
         (n + 8) u of the same.
 
     bound = 4 (E_i + (n + 8) u) (A_i + |out_i|), with a factor 2 to spare.
+
+    It covers the bf16 kernel's tensor-core sums as well: the products of
+    bf16 values (q·k, and each bf16 part of p times v, the parts summing
+    to p exactly, see :func:`split_bf16x3`) are exact, and ``wgmma`` adds
+    them in fp32 in groups of 16 onto the accumulator, so a score takes
+    Dh / 16 rounding steps and out_i 3 n / 16, each at most a few u of
+    the running magnitude: fewer than the Dh and n sequential fp32 FMAs
+    this bound allows for.
     Inputs: qf (B, H, Lq, Dh), kf/vf (B, H, Lk, Dh) f32 (GQA repeated),
     ``valid`` broadcastable to (B, H, Lq, Lk). Returns (B, H, Lq, Dh), or
     with ``relative`` the factor 4 (E_i + (n + 8) u) alone, (B, H, Lq, 1),
@@ -141,30 +165,36 @@ def check_against_plain(args: tuple, kw: dict, out_k: torch.Tensor | None = None
 
 class FlashParams(ctypes.Structure):
     _fields_ = [("scale", ctypes.c_float), ("causal", ctypes.c_int),
-                ("causal_shift", ctypes.c_int)]
+                ("causal_shift", ctypes.c_int), ("p_hi_only", ctypes.c_int)]
 
 
 def kernel_params(*, scale: float, causal: bool) -> FlashParams:
-    """The kernel's run-time parameters; ``causal_shift`` is 0
-    (:func:`planted_params` plants 1 without touching the source)."""
-    return FlashParams(scale, int(causal), 0)
+    """The kernel's run-time parameters; ``causal_shift`` and
+    ``p_hi_only`` are 0 (:func:`planted_params` plants 1 without
+    touching the source)."""
+    return FlashParams(scale, int(causal), 0, 0)
 
 
 #: The faults :func:`planted_params` plants.
-FAULTS = ("causal_plus_one",)
+FAULTS = ("causal_plus_one", "p_bf16")
 
 
 def planted_params(fault: str):
-    """A stand-in for :func:`kernel_params` with ``fault`` planted: the
-    causal mask one column late (each query sees one future key). A check
-    rebinds ``kernel_params`` to it, and must then fail."""
+    """A stand-in for :func:`kernel_params` with ``fault`` planted:
+    ``causal_plus_one`` lets each query see one future key;
+    ``p_bf16`` (bf16 inputs) feeds P to P·V as its bf16 hi part alone,
+    rounding the fp32 weights once as FlashAttention does. A check rebinds
+    ``kernel_params`` to it, and must then fail."""
     if fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}, not in {FAULTS}")
     clean = kernel_params
 
     def faulty(**kw) -> FlashParams:
         p = clean(**kw)
-        p.causal_shift = 1
+        if fault == "causal_plus_one":
+            p.causal_shift = 1
+        else:
+            p.p_hi_only = 1
         return p
 
     return faulty
@@ -207,12 +237,29 @@ def _check_qkv(q, k, v) -> None:
         raise ValueError("q, k and v need unit stride along the head dim")
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the grid's y limit")
+    if q.dtype == torch.bfloat16 and -(-q.shape[2] // _BF16_ROWS) > 65535:
+        raise ValueError(f"Lq = {q.shape[2]} exceeds the bf16 kernel's grid y limit")
+
+
+def _strides(t: torch.Tensor) -> list:
+    """(b, head, l) element strides; a size-1 dim's stride (its index is
+    always 0) reads as 8, which TMA takes."""
+    return [s if n > 1 else 8 for s, n in zip(t.stride()[:3], t.shape[:3])]
+
+
+def tma_addressable(t: torch.Tensor) -> bool:
+    """Whether TMA reads the bf16 view ``t`` in place: a 16-byte aligned
+    base and (b, head, l) strides that are positive multiples of 16 bytes.
+    The wrapper copies any other view before the launch."""
+    return t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0 for s in _strides(t))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
     """Attention of q (B, H, Lq, Dh) over k/v (B, Hkv, Lk, Dh) (fp32 or
     bf16, any strides with a unit head-dim stride) -> (B, H, Lq, Dh) f32.
+    A bf16 view that TMA cannot read in place (:func:`tma_addressable`)
+    is copied first.
 
     CPU tensors take :func:`flash_attention_ref`; CUDA tensors launch the
     kernel or raise.
@@ -225,11 +272,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     if k.device != dev or v.device != dev:
         raise ValueError("q, k and v must be on one device")
     _check_qkv(q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if tma_addressable(t) else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     b, h, lq, dh = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else 1.0 / math.sqrt(dh))
     out = torch.empty((b, h, lq, dh), dtype=torch.float32, device=dev)
-    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in t.stride()[:3]))
+    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in _strides(t)))
     params = kernel_params(scale=scale, causal=causal)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -388,6 +388,139 @@ def test_flash_kernel_within_rounding_bound(cuda_device, dtype, causal, lq, lk, 
     assert tfa.flash_attention.launches == before + 1
 
 
+# The bf16 tensor-core kernel: 128 query rows a CTA, 64-key tiles. Lengths
+# of 1, 63, 65, 127, 129 and 1000 keep a multiple of a tile from hiding the
+# ragged mask; rep = H / Hkv of 1, 3 and 8.
+FLASH_BF16_CASES = {  # b, h, hkv, lq, lk, dh, causal, heads-last views
+    "dh16": (2, 6, 2, 129, 129, 16, True, True),
+    "dh32": (2, 6, 2, 127, 127, 32, True, False),
+    "dh64": (2, 6, 2, 65, 65, 64, True, True),
+    "dh128": (1, 6, 2, 1000, 1000, 128, True, True),
+    "len1": (2, 4, 4, 1, 1, 128, True, False),
+    "len63": (2, 8, 1, 63, 63, 64, True, True),
+    "len65_not_causal": (1, 6, 2, 65, 65, 128, False, False),
+    "len127_rep8": (1, 16, 2, 127, 127, 128, True, True),
+    "len1000_not_causal": (1, 3, 1, 1000, 1000, 32, False, True),
+    "lq_gt_lk": (2, 6, 2, 200, 65, 128, True, False),
+    "lq_lt_lk": (2, 6, 2, 65, 1000, 128, True, True),
+    "lq1_lk129": (2, 6, 2, 1, 129, 64, True, False),
+    "lq129_lk63_not_causal": (1, 8, 8, 129, 63, 16, False, True),
+    "prefill_rows": (1, 24, 8, 1024, 1024, 128, True, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_BF16_CASES))
+def test_flash_bf16_kernel_within_rounding_bound(cuda_device, case):
+    b, h, hkv, lq, lk, dh, causal, heads_last = FLASH_BF16_CASES[case]
+    args = tfa.random_inputs(21, b, h, hkv, lq, lk, dh, torch.bfloat16, heads_last=heads_last,
+                             device=cuda_device)
+    before = tfa.flash_attention.launches
+    tfa.check_against_plain(args, {"causal": causal})
+    assert tfa.flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_fully_masked_rows_are_zero(cuda_device, dtype):
+    """Lq > Lk, causal: the first Lq - Lk rows see no key and are exactly 0."""
+    args = tfa.random_inputs(22, 2, 6, 2, 200, 65, 64, dtype, device=cuda_device)
+    out = tfa.flash_attention(*args)
+    torch.cuda.synchronize()
+    assert not bool(out[:, :, :135].any())
+    assert bool((out[:, :, 135:].abs().sum(-1) > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["padded_rows", "unaligned_base"])
+def test_flash_bf16_copies_a_view_tma_cannot_address(cuda_device, view):
+    """A bf16 view whose row stride is not a multiple of 16 bytes, or whose
+    base is not 16-byte aligned, is copied by the wrapper and still agrees
+    with the plain version."""
+    q, k, v = tfa.random_inputs(23, 2, 6, 2, 129, 129, 64, torch.bfloat16, device=cuda_device)
+    if view == "padded_rows":
+        wide = torch.zeros(2, 2, 129, 68, dtype=torch.bfloat16, device=cuda_device)
+        wide[..., :64] = k
+        k = wide[..., :64]
+    else:
+        flat = torch.zeros(k.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+        flat[1:] = k.reshape(-1)
+        k = flat[1:].view(k.shape)
+    assert not tfa.tma_addressable(k) and tfa.tma_addressable(q)
+    before = tfa.flash_attention.launches
+    tfa.check_against_plain((q, k, v), {"causal": True})
+    assert tfa.flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,lq,lk,causal", [(16, 129, 1000, True), (128, 65, 63, False),
+                                             (128, 1000, 1000, True)])
+def test_flash_fp32_kernel_still_within_rounding_bound(cuda_device, dh, lq, lk, causal):
+    """fp32 inputs take the CUDA-core instantiation."""
+    args = tfa.random_inputs(24, 1, 6, 2, lq, lk, dh, torch.float32, heads_last=True,
+                             device=cuda_device)
+    tfa.check_against_plain(args, {"causal": causal})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_is_deterministic(cuda_device, dtype):
+    """Two launches on the same inputs give the same bits: each output row
+    is written once, by one CTA, with no atomics."""
+    args = tfa.random_inputs(25, 2, 24, 8, 1000, 1000, 128, dtype, heads_last=True,
+                             device=cuda_device)
+    first = tfa.flash_attention(*args)
+    for _ in range(2):
+        assert torch.equal(first.view(torch.int32), tfa.flash_attention(*args).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_replays_in_a_cuda_graph(cuda_device):
+    """A bf16 launch captured in a CUDA graph (its tensor maps are kernel
+    parameters) replays to the eager launch's bits."""
+    args = tfa.random_inputs(26, 2, 24, 8, 300, 300, 128, torch.bfloat16, heads_last=True,
+                             device=cuda_device)
+    eager = tfa.flash_attention(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfa.flash_attention(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tfa.flash_attention.launches
+    with torch.cuda.graph(graph):
+        captured = tfa.flash_attention(*args)
+    assert tfa.flash_attention.launches == before + 1
+    for _ in range(2):
+        captured.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(eager.view(torch.int32), captured.view(torch.int32))
+
+
+@pytest.mark.parametrize("fault", tfa.FAULTS)
+def test_flash_planted_params_change_one_field(fault):
+    clean = tfa.kernel_params(scale=0.125, causal=True)
+    planted = tfa.planted_params(fault)(scale=0.125, causal=True)
+    changed = [f for f, _ in tfa.FlashParams._fields_
+               if getattr(clean, f) != getattr(planted, f)]
+    assert changed == [{"causal_plus_one": "causal_shift", "p_bf16": "p_hi_only"}[fault]]
+
+
+def test_tma_addressable_views():
+    """The wrapper's rule for bf16 views TMA reads in place, on CPU
+    tensors: the model's heads-last views and contiguous tensors pass; a
+    row stride off 16 bytes or an unaligned base does not; the stride of
+    a size-1 dim is never read."""
+    q, k, v = tfa.random_inputs(27, 2, 6, 2, 33, 33, 64, torch.bfloat16, heads_last=True)
+    assert all(tfa.tma_addressable(t) for t in (q, k, v, q.contiguous()))
+    assert not tfa.tma_addressable(torch.zeros(2, 2, 33, 68, dtype=torch.bfloat16)[..., :64])
+    flat = torch.zeros(2 * 2 * 33 * 64 + 1, dtype=torch.bfloat16)
+    assert not tfa.tma_addressable(flat[1:].view(2, 2, 33, 64))
+    assert tfa.tma_addressable(torch.zeros(1, 1, 33, 64, dtype=torch.bfloat16)
+                               .as_strided((1, 1, 33, 64), (3, 5, 64, 1)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", tkv.FAULTS + tfa.FAULTS)
 def test_lm_checks_fail_a_planted_fault(cuda_device, monkeypatch, fault):

@@ -76,6 +76,28 @@ def test_flash_attention_ref_fully_masked_rows_give_zero():
     assert bool((out[:, :, 2:].abs() > 0).all())
 
 
+def test_split_bf16x3_is_exact():
+    """The plain three-part bf16 split that the bf16 kernel feeds to the
+    tensor cores: hi + mid + lo == p bit for bit for fp32 weights in
+    [2^-110, 1], 1.0 included; below 2^-110 (exp(-87), fp32 subnormals)
+    lo would fall under bf16's range, and the parts are within 2^-133 of
+    p, which ``rounding_bound`` absorbs."""
+    rng = np.random.default_rng(4)
+    e = rng.uniform(-110, 0, 200_000)
+    p = np.minimum(2.0 ** e * rng.uniform(1, 2, e.size), 1.0).astype(np.float32)
+    edges = np.float32([1.0, 2.0**-110, np.nextafter(np.float32(1), np.float32(0))])
+    p = torch.as_tensor(np.concatenate([p, edges]))
+    hi, mid, lo = tfa.split_bf16x3(p)
+    assert all(x.dtype == torch.bfloat16 for x in (hi, mid, lo))
+    assert torch.equal(hi.double() + mid.double() + lo.double(), p.double())
+    tiny = np.concatenate([np.exp(np.float32([-87.0, -100.0])), np.float32([2.0**-126, 2.0**-149]),
+                           (2.0 ** rng.uniform(-149, -110, 20_000)).astype(np.float32)])
+    tiny = torch.as_tensor(tiny.astype(np.float32))
+    hi, mid, lo = tfa.split_bf16x3(tiny)
+    err = (hi.double() + mid.double() + lo.double() - tiny.double()).abs()
+    assert float(err.max()) <= 2.0**-133
+
+
 def test_sdpa_chunked_matches_jax():
     """K7's plain version, in the kernel's (B, H, L, Dh) layout, against
     JAX's ``sdpa_chunked``, the attention its prefill runs in (B, L, H, Dh)."""
