@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # all phases but the profile (6)
     python3 chip_smoke.py --phases 1,9    # build + llama3.2-3b served (K6, K7)
     python3 chip_smoke.py --phases 1,9 --parent build/parent  # K7 beside an earlier tree's
+    python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1 and K5 beside it
     python3 chip_smoke.py --phases 1,8    # build + the 1M-particle NNPS path
     python3 chip_smoke.py --phases 1,2    # build + kernel checks only
     python3 chip_smoke.py --phases 6      # the profile
@@ -35,7 +36,9 @@ Phases (each prints its own lines and raises on failure):
      ds=1/1024)`` (N = 1,048,576, fp16 records) through ``run_timed``
      with observables every 10 steps; launch counts are zeroed just
      before and read just after; then K1 and K2 are timed on the main
-     path's own inputs beside their plain versions and their bounds;
+     path's own inputs beside their plain versions and their bounds (K1
+     also in a CUDA graph, with the bandwidth it reaches, and beside the
+     design of ``--parent`` when given);
   4. the stale-binning path: the skinned, dropped-column dam break at
      ~250k particles, long enough for >= 2 in-run rebuilds between which
      K2 consumes non-zero cell shifts;
@@ -67,7 +70,9 @@ Phases (each prints its own lines and raises on failure):
      binning overflow, K4 at most 48 neighbors and equal to
      ``nnps.rcll_neighbors``, K5's counts equal to K4's, the gradient of
      x^3 within the interior RMS gate; each kernel held against its plain
-     version and timed beside it and its bound; the paper's Table 2
+     version and timed beside it and its bound (K5 also in a CUDA graph,
+     with the bandwidth it reaches, and beside the design of ``--parent``
+     when given); the paper's Table 2
      wrong-determination counts against the fp64 truth (readings);
   9. the LM serving path: ``ServeRun("llama3.2-3b", smoke=False, batch 4,
      prompt 1024, gen 160)`` at full width and depth with random weights
@@ -93,6 +98,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import shutil
@@ -222,7 +228,8 @@ def time_ms_graph(fn, reps: int = 50) -> float:
     with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
-    graph.replay()
+    for _ in range(2):  # the first replays find the graph's memory fresh
+        graph.replay()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -234,15 +241,30 @@ def time_ms_graph(fn, reps: int = 50) -> float:
     return t0.elapsed_time(t1) / (3 * reps)
 
 
+def store_yardstick(nbytes: int, reps: int = 50) -> str:
+    """A clause giving the time of ``torch.Tensor.zero_`` on ``nbytes`` (the
+    card's store rate for a kernel's output bytes, reads aside), in a CUDA
+    graph; a yardstick beside the bound, not a library call of the function."""
+    buf = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    ms = time_ms_graph(buf.zero_, reps)
+    del buf
+    return (f"; zero_ of the {nbytes} output bytes {ms:.4f} ms "
+            f"({nbytes / ms / 1e9:.3f} TB/s)")
+
+
+def k1_out_bytes(args, kw) -> int:
+    """Bytes of K1's three tables."""
+    rows16, rows32, starts = args[:3]
+    return (starts.shape[0] + 1) * kw["cap"] * (2 * rows16.shape[1] + 4 * rows32.shape[1] + 4)
+
+
 def k1_bytes(args, kw) -> int:
     rows16, rows32, starts, counts, fill32 = args
     n, f16 = rows16.shape
     f32 = rows32.shape[1]
     c = starts.shape[0]
-    cap = kw["cap"]
     read = n * (2 * f16 + 4 * f32) + 8 * c + 4 * f32
-    write = (c + 1) * cap * (2 * f16 + 4 * f32 + 4)
-    return read + write
+    return read + k1_out_bytes(args, kw)
 
 
 def k2_ops_per_pair(dim: int, scheme) -> int:
@@ -332,14 +354,20 @@ def k4_work(args, kw):
     return pairs, pairs * nnps_decision_ops(d), nbytes
 
 
+def k5_out_bytes(args) -> int:
+    """Bytes of K5's adjacency and counts."""
+    rel, occ, nb_ids = args
+    c1, d, cap = rel.shape
+    return c1 * nb_ids.shape[1] * cap * cap * 4 + c1 * cap * 4
+
+
 def k5_work(args, kw):
     """(pairs decided, operations, bytes) of one K5 call on these inputs."""
     rel, occ, nb_ids = args
-    c1, d, cap = rel.shape
     pairs = _occupied_pairs(occ, nb_ids)
     nbytes = (rel.numel() * rel.element_size() + occ.numel() * 4 + nb_ids.numel() * 4
-              + c1 * nb_ids.shape[1] * cap * cap * 4 + c1 * cap * 4)
-    return pairs, pairs * nnps_decision_ops(d), nbytes
+              + k5_out_bytes(args))
+    return pairs, pairs * nnps_decision_ops(rel.shape[1]), nbytes
 
 
 def k3_work(args, kw, neighbors: int):
@@ -368,17 +396,8 @@ def bound(nbytes: float, ops: float, bf16_tensor_ops: float = 0.0) -> tuple[floa
 def check_k1(args, kw) -> None:
     from repro_torch.kernels import cell_pack
 
-    out_k = cell_pack.cell_tables(*args, **kw)
-    out_r = cell_pack.cell_tables_ref(*args, **kw)
+    cell_pack.check_against_plain(args, kw)
     torch.cuda.synchronize()
-    for name, a, b in zip(("t16", "t32", "ids"), out_k, out_r):
-        if a.shape != b.shape or a.dtype != b.dtype:
-            raise AssertionError(f"K1 {name}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
-        ai = a.view(torch.int32) if a.dtype == torch.float32 else a
-        bi = b.view(torch.int32) if b.dtype == torch.float32 else b
-        if not torch.equal(ai, bi):
-            raise AssertionError(f"K1 {name} differs from the plain version "
-                                 f"in {(ai != bi).sum().item()} entries")
 
 
 def k2_summary(c: dict) -> str:
@@ -544,7 +563,7 @@ def k3_summary(c: dict) -> str:
             f"(limit {sph_gradient.NORMWISE_LIMIT:g})")
 
 
-def phase3_main_path(results: dict) -> None:
+def phase3_main_path(results: dict, parent: Path | None = None) -> None:
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
     from repro_torch.kernels import cell_pack, rcll_force
@@ -593,16 +612,21 @@ def phase3_main_path(results: dict) -> None:
     a2, kw2 = store["k2"]
     check_k1(a1, kw1)
     c2 = rcll_force.check_against_plain(a2, kw2)
-    ms1 = time_ms(lambda: K1(*a1, **kw1), reps=20)
+    ms1 = time_ms_graph(lambda: K1(*a1, **kw1))
+    eager1 = time_ms(lambda: K1(*a1, **kw1), reps=20)
     plain1 = time_ms(lambda: cell_pack.cell_tables_ref(*a1, **kw1), reps=10)
     ms2 = time_ms(lambda: K2(*a2, **kw2), reps=10)
     plain2 = time_ms(lambda: rcll_force.rcll_force_ref(*a2, **kw2), reps=3, warmup=1)
     b1, by1 = bound(k1_bytes(a1, kw1), 0.0)
     pairs, inside, ops2, bytes2 = k2_work(a2, kw2)
     b2, by2 = bound(bytes2, ops2)
-    log(f"[3] K1 at main-path shapes t16 {tuple(a1[0].shape)} rows: {ms1:.4f} ms "
-        f"(plain {plain1:.4f} ms), bound {b1:.4f} ms by {by1} "
-        f"({k1_bytes(a1, kw1)} bytes), bit-identical")
+    log(f"[3] K1 at main-path shapes rows16 {tuple(a1[0].shape)} rows32 "
+        f"{tuple(a1[1].shape)} cap {kw1['cap']}: {ms1:.4f} ms a launch in a CUDA graph "
+        f"({eager1:.4f} ms launched one by one from Python, the wrapper included; plain "
+        f"{plain1:.4f} ms), bound {b1:.4f} ms by {by1} ({k1_bytes(a1, kw1)} bytes; "
+        f"{k1_bytes(a1, kw1) / ms1 / 1e9:.3f} TB/s reached of 3.35), bit-identical"
+        + store_yardstick(k1_out_bytes(a1, kw1))
+        + wide_stores("cell_tables_kernel", "STG.E.128") + parent_times(parent, "k1", a1, kw1, ms1))
     log(f"[3] K2 at main-path shapes rel {tuple(a2[0].shape)}: {ms2:.4f} ms "
         f"(plain {plain2:.4f} ms), bound {b2:.4f} ms by {by2} ({pairs} occupied pairs, "
         f"{inside} inside the support, {k2_visited_pairs(a2, kw2)} visited by the kernel; "
@@ -723,11 +747,12 @@ def phase5_kernel_vs_plain_path() -> None:
 
 
 def phase7_planted_faults() -> None:
-    """Plant faults in K2 through its runtime parameters (the sources are
-    untouched): the Morris term dropped, the EOS constant 1% off, and the
-    last occupied slot of every neighbor tile skipped. The K2 check at the
-    main path's inputs (phase 3's), phase 2 and phase 5 must each fail on
-    each fault."""
+    """Plant faults in K1 (:func:`k1_planted_faults`) and in K2 through
+    their run-time parameters (the sources are untouched); in K2 the
+    Morris term dropped, the EOS constant 1% off, and the last occupied
+    slot of every neighbor tile skipped. The K2 check at the main path's
+    inputs (phase 3's), phase 2 and phase 5 must each fail on each fault;
+    then the NNPS and LM kernels' faults."""
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
     from repro_torch.kernels import rcll_force
@@ -737,10 +762,10 @@ def phase7_planted_faults() -> None:
     store: dict = {}
     with capture_kernel_inputs(store):
         solver.step_persistent(sim.cfg, solver.init_persistent(sim.cfg, sim.state))
+    missed = k1_planted_faults(store)
     params = rcll_force.kernel_params
     checks = (("main-path K2 check", lambda: rcll_force.check_against_plain(*store["k2"])),
               ("phase 2", phase2_kernels), ("phase 5", phase5_kernel_vs_plain_path))
-    missed = []
     for fault in rcll_force.FAULTS:
         for name, check in checks:
             rcll_force.kernel_params = rcll_force.planted_params(fault)
@@ -756,6 +781,30 @@ def phase7_planted_faults() -> None:
     missed += lm_planted_faults()
     if missed:
         raise AssertionError(f"planted faults not caught: {missed}")
+
+
+def k1_planted_faults(store: dict) -> list:
+    """Faults planted in K1 through its run-time ``fault`` argument (the
+    last occupied slot of each cell left empty; empty fp32 slots filled
+    with 0): the K1 check at the main path's inputs (``store``) and phase
+    2 must each fail on each. Returns the (fault, check) pairs that passed."""
+    from repro_torch.kernels import cell_pack
+
+    checks = (("main-path K1 check", lambda: check_k1(*store["k1"])), ("phase 2", phase2_kernels))
+    missed = []
+    for fault in cell_pack.FAULTS:
+        for name, check in checks:
+            params = cell_pack.kernel_params
+            cell_pack.kernel_params = cell_pack.planted_params(fault)
+            try:
+                check()
+                missed.append((f"K1:{fault}", name))
+                log(f"[7] K1:{fault}: {name} PASSED: the fault was not caught")
+            except AssertionError as e:
+                log(f"[7] K1:{fault}: {name} failed, as it must: {e}")
+            finally:
+                cell_pack.kernel_params = params
+    return missed
 
 
 def nnps_planted_faults() -> list:
@@ -892,7 +941,7 @@ def nnps_path_checks(run: dict) -> dict:
                 k3=sph_gradient.check_against_plain(a3, kw3))
 
 
-def phase8_nnps_path(results: dict) -> None:
+def phase8_nnps_path(results: dict, parent: Path | None = None) -> None:
     from repro_torch.core import cells, nnps, rcll
     from repro_torch.kernels import nnps_pairwise, ops, sph_gradient
 
@@ -971,9 +1020,17 @@ def phase8_nnps_path(results: dict) -> None:
         plain_ms = time_ms(lambda: plain(*a, **kw), reps=3, warmup=1)
         pairs, ops_n, nbytes = work(a, kw)
         bms, by = bound(nbytes, ops_n)
+        extra = ""
+        if key == "k5":  # 8 launches a graph: each call allocates its 2.7 GB output
+            eager, ms = ms, time_ms_graph(lambda: fn(*a, **kw), reps=8)
+            extra = (f"; {ms:.4f} ms a launch in a CUDA graph ({eager:.4f} ms launched one by "
+                     f"one from Python), {nbytes / ms / 1e9:.3f} TB/s reached of 3.35"
+                     + store_yardstick(k5_out_bytes(a), reps=8)
+                     + wide_stores("adjacency_kernel", "STG.E.EF.128")
+                     + parent_times(parent, key, a, kw, ms, reps=8))
         log(f"[8] {key.upper()} {name} rel {tuple(a[0].shape)} {a[0].dtype}: {ms:.4f} ms "
             f"(plain {plain_ms:.4f} ms), bound {bms:.4f} ms by {by} ({pairs} pairs decided, "
-            f"{ops_n:.4g} ops, {nbytes} bytes)")
+            f"{ops_n:.4g} ops, {nbytes} bytes){extra}")
         rows.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
                      "replaces": rep, "launches": run["launches"][key],
                      "max_abs_err": c[key]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
@@ -1419,16 +1476,18 @@ def _log_profile(what: str, prof, wall: float, n: int) -> None:
                 f"{e.key[:90]}")
 
 
-#: Times K7 from the checkout in argv[1] on the inputs saved in argv[2]: the
-#: same CUDA-graph method as :func:`time_ms_graph`, in a process of its own
-#: (the two trees' packages share a name).
-PARENT_K7_TIMER = """
+#: Times the kernel wrapper ``MOD.NAME`` of the checkout in argv[1] on the
+#: inputs saved in argv[2]: the same CUDA-graph method as
+#: :func:`time_ms_graph` with argv[3] launches a graph, in a process of its
+#: own (the two trees' packages share a name).
+PARENT_TIMER = """
 import sys
 sys.path.insert(0, sys.argv[1] + "/src")
 import torch
-from repro_torch.kernels import flash_attention as k7
-a, kw = torch.load(sys.argv[2])
-fn = lambda: k7.flash_attention(*a, **kw)
+from repro_torch.kernels.MOD import NAME as wrapped
+reps = int(sys.argv[3])
+a, kw = torch.load(sys.argv[2], weights_only=False)
+fn = lambda: wrapped(*a, **kw)
 side = torch.cuda.Stream()
 side.wait_stream(torch.cuda.current_stream())
 with torch.cuda.stream(side):
@@ -1436,9 +1495,10 @@ with torch.cuda.stream(side):
 torch.cuda.current_stream().wait_stream(side)
 graph = torch.cuda.CUDAGraph()
 with torch.cuda.graph(graph):
-    for _ in range(50):
+    for _ in range(reps):
         fn()
-graph.replay()
+for _ in range(2):
+    graph.replay()
 torch.cuda.synchronize()
 t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 t0.record()
@@ -1446,36 +1506,72 @@ for _ in range(3):
     graph.replay()
 t1.record()
 torch.cuda.synchronize()
-print(t0.elapsed_time(t1) / 150)
+print(t0.elapsed_time(t1) / (3 * reps))
 """
 
 
-def parent_k7_ms(parent: Path, a, kw) -> float:
-    """K7's time in a CUDA graph of 50 launches as the tree in ``parent``
-    builds it, on these inputs (saved under ``build/``)."""
-    path = ROOT / "build" / "k7_prefill_inputs.pt"
+def parent_ms(parent: Path, key: str, a, kw, reps: int = 50) -> float:
+    """Kernel ``key``'s time in a CUDA graph of ``reps`` launches as the
+    tree in ``parent`` builds it, on these inputs (saved under ``build/``)."""
+    mod, name, _ = next(w for w in WRAPPERS if w[2] == key)
+    path = ROOT / "build" / f"{key}_inputs.pt"
     path.parent.mkdir(exist_ok=True)
     torch.save((a, kw), path)
-    out = subprocess.run([sys.executable, "-c", PARENT_K7_TIMER, str(parent), str(path)],
-                         check=True, capture_output=True, text=True, timeout=600)
+    torch.cuda.empty_cache()  # the parent's process needs the card's memory too
+    code = PARENT_TIMER.replace("MOD", mod).replace("NAME", name)
+    out = subprocess.run([sys.executable, "-c", code, str(parent), str(path), str(reps)],
+                         check=True, capture_output=True, text=True, timeout=900)
     return float(out.stdout.strip().splitlines()[-1])
 
 
-def hgmma_counts() -> dict:
-    """HGMMA (wgmma) instructions in the SASS of each bf16 K7 instantiation
-    of the built library, by head dim (``cuobjdump -sass``)."""
+def parent_times(parent: Path | None, key: str, a, kw, ms: float, reps: int = 50) -> str:
+    """The design in ``parent`` timed before and after this tree's second
+    timing (parent, this, this, parent), as a clause of a log line; "" when
+    no parent is given."""
+    if parent is None:
+        return ""
+    fn = wrapper(key)
+    before = parent_ms(parent, key, a, kw, reps)
+    again = time_ms_graph(lambda: fn(*a, **kw), reps)
+    after = parent_ms(parent, key, a, kw, reps)
+    return (f"; the design in {parent} in a CUDA graph: {before:.4f} and {after:.4f} ms "
+            f"(this tree {ms:.4f} and {again:.4f} ms between them)")
+
+
+@functools.cache
+def sass_functions() -> dict:
+    """The SASS of the built kernel library by function name (``cuobjdump -sass``)."""
     from repro_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(_build.library().path)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
-    counts = {}
-    for fn in sass.split("Function : ")[1:]:
-        name = fn.split(None, 1)[0]
-        if "flash_wgmma_kernel" in name:
-            dh = int(name.split("flash_wgmma_kernelILi")[1].split("E")[0])
-            counts[dh] = sum("HGMMA" in line for line in fn.splitlines())
-    return dict(sorted(counts.items()))
+    return {fn.split(None, 1)[0]: fn for fn in sass.split("Function : ")[1:]}
+
+
+def sass_count(kernel: str, instr: str) -> dict:
+    """Instructions containing ``instr`` in each SASS function whose name
+    contains ``kernel``."""
+    return {name: sum(instr in line for line in body.splitlines())
+            for name, body in sass_functions().items() if kernel in name}
+
+
+def hgmma_counts() -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each bf16 K7 instantiation
+    of the built library, by head dim."""
+    counts = sass_count("flash_wgmma_kernel", "HGMMA")
+    return dict(sorted((int(name.split("flash_wgmma_kernelILi")[1].split("E")[0]), n)
+                       for name, n in counts.items()))
+
+
+def wide_stores(kernel: str, instr: str) -> str:
+    """A clause naming the 16-byte stores (``instr``) in the SASS of each
+    instantiation of ``kernel``; raises if one has none."""
+    counts = sass_count(kernel, instr)
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"{kernel} has an instantiation without {instr}: {counts}")
+    return (f"; {instr} in the SASS of its {len(counts)} instantiation(s): "
+            f"{min(counts.values())} to {max(counts.values())}")
 
 
 def k7_yardsticks(a, kw, ms: float, lib_ms: float, parent: Path | None) -> str:
@@ -1492,13 +1588,7 @@ def k7_yardsticks(a, kw, ms: float, lib_ms: float, parent: Path | None) -> str:
             f"tensor-core pass for all {half / H100_BF16_TENSOR_OPS_PER_S * 2e3:.4f} ms, the "
             f"bytes {nbytes / H100_BYTES_PER_S * 1e3:.4f} ms; library "
             f"(scaled_dot_product_attention, fp32, causal, GQA) {lib_ms:.4f} ms")
-    if parent is not None:
-        fn = wrapper("k7")
-        before = parent_k7_ms(parent, a, kw)
-        again = time_ms_graph(lambda: fn(*a, **kw))
-        after = parent_k7_ms(parent, a, kw)
-        text += (f"; the design in {parent} in a CUDA graph: {before:.4f} and {after:.4f} ms "
-                 f"(this tree {ms:.4f} and {again:.4f} ms between them)")
+    text += parent_times(parent, "k7", a, kw, ms)
     counts = hgmma_counts()
     if not counts or not all(counts.values()):
         raise AssertionError(f"the bf16 K7 kernel has no HGMMA instruction: {counts}")
@@ -1625,7 +1715,8 @@ def main() -> int:
     ap.add_argument("--phases", default="1,2,3,4,5,7,8,9",
                     help="comma-separated phases to run (default: all but 6)")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of an earlier tree whose K7 phase 9 times beside this one")
+                    help="a checkout of an earlier tree whose K1, K5 and K7 phases 3, 8 and 9 "
+                         "time beside this tree's")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -1640,7 +1731,7 @@ def main() -> int:
     if 2 in phases:
         phase2_kernels()
     if 3 in phases:
-        phase3_main_path(results)
+        phase3_main_path(results, args.parent)
     if 4 in phases:
         phase4_stale_binning()
     if 5 in phases:
@@ -1650,7 +1741,7 @@ def main() -> int:
     if 7 in phases:
         phase7_planted_faults()
     if 8 in phases:
-        phase8_nnps_path(results)
+        phase8_nnps_path(results, args.parent)
     if 9 in phases:
         phase9_serving(results, args.parent)
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")

@@ -3,16 +3,16 @@
 Replaces the Pallas kernel ``repro/kernels/cell_pack.py::cell_tables``
 with the hand-written CUDA kernel ``csrc/cell_pack.cu``. The persistent
 pipeline's arrays are cell-sorted, so cell c's tile is the contiguous
-row slice ``starts[c] .. starts[c] + counts[c] - 1``: one block per cell
-copies it from a 16-bit slab and an fp32 slab, masks slots past the
-occupancy, transposes to ``(F, cap)`` and emits the packed-id table.
+row slice ``starts[c] .. starts[c] + counts[c] - 1``. One thread writes
+each 16-byte chunk of a table
+(:func:`pack_geometry`), gathering its slots from the rows and masking
+slots past the occupancy (0 in ``t16``, ``fill32[f]`` in ``t32``, -1 in
+``ids``).
 
 On the H100 the kernel is bound by bytes: it reads the two row slabs
 once and writes the three tables once (about 17 MB read and 73 MB
 written per step for 2-D fp16 records at N = 1,048,576), with no
-arithmetic. The simple design (one block per cell, strided row reads)
-leaves vector loads and several-cells-per-block on the table; see the
-note in the CUDA source.
+arithmetic.
 
 :func:`cell_tables` launches the kernel for CUDA tensors and takes the
 plain version :func:`cell_tables_ref` only for CPU tensors; the outputs
@@ -61,10 +61,49 @@ def cell_tables_ref(
     )
 
 
+#: Threads of a block (``kThreads`` in the CUDA source).
+PACK_THREADS = 128
+
+
+def pack_geometry(c_total: int, f16: int, f32: int, cap: int) -> tuple[int, int, int]:
+    """Blocks of the kernel for t16, t32 and ids, in that order in its grid:
+    one thread for each 16-byte chunk of a table (8 int16 or 4 32-bit
+    elements), the last chunk of a table partial when its size is not a
+    multiple of 16 bytes."""
+    cells = c_total + 1
+    chunks = (_ceil_div(cells * f16 * cap, 8), _ceil_div(cells * f32 * cap, 4),
+              _ceil_div(cells * cap, 4))
+    return tuple(_ceil_div(q, PACK_THREADS) for q in chunks)
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+#: Faults a check can plant through :func:`planted_params` (the run-time
+#: ``fault`` argument of ``repro_cell_tables``).
+FAULTS = ("last_slot", "fill_zero")
+
+
+def kernel_params() -> int:
+    """The kernel's run-time ``fault`` argument: 0, a correct kernel."""
+    return 0
+
+
+def planted_params(fault: str):
+    """A stand-in for :func:`kernel_params` with ``fault`` planted: the
+    last occupied slot of each cell left as an empty slot, or empty fp32
+    slots filled with 0 instead of ``fill32``. A check rebinds
+    ``kernel_params`` to it, and must then fail."""
+    if fault not in FAULTS:
+        raise ValueError(f"unknown fault {fault!r}, not in {FAULTS}")
+    return lambda: FAULTS.index(fault) + 1
+
+
 @functools.cache
 def _entry():
     fn = _build.library().lib.repro_cell_tables
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -107,8 +146,11 @@ def cell_tables(
     _check(starts, "starts", torch.int32, (c_total,), dev)
     _check(counts, "counts", torch.int32, (c_total,), dev)
     _check(fill32, "fill32", torch.float32, (f32,), dev)
-    if cap < 1 or f16 < 1 or f32 < 1:
-        raise ValueError(f"cap, F16 and F32 must be >= 1, got {cap}, {f16}, {f32}")
+    if cap < 1 or f16 < 1 or f32 < 1 or n < 1:
+        raise ValueError(f"cap, F16, F32 and N must be >= 1, got {cap}, {f16}, {f32}, {n}")
+    if max(n, (c_total + 1) * cap) * max(f16, f32) >= 2**31:
+        raise ValueError("the kernel indexes tables and slabs below 2^31 elements")
+    blocks = pack_geometry(c_total, f16, f32, cap)
     t16 = torch.empty((c_total + 1, f16, cap), dtype=torch.int16, device=dev)
     t32 = torch.empty((c_total + 1, f32, cap), dtype=torch.float32, device=dev)
     ids = torch.empty((c_total + 1, cap), dtype=torch.int32, device=dev)
@@ -117,11 +159,29 @@ def cell_tables(
         rc = _entry()(
             rows16.data_ptr(), rows32.data_ptr(), starts.data_ptr(),
             counts.data_ptr(), fill32.data_ptr(), t16.data_ptr(),
-            t32.data_ptr(), ids.data_ptr(), n, c_total, f16, f32, cap, stream,
+            t32.data_ptr(), ids.data_ptr(), n, c_total, f16, f32, cap, *blocks,
+            kernel_params(), stream,
         )
     _build.check_rc(rc, "cell_tables")
     _WRAPPER.launches += 1
     return t16, t32, ids
+
+
+def check_against_plain(args: tuple, kw: dict) -> dict:
+    """Launch K1 and its plain version on the same inputs and require every
+    table to be bit-identical (fp32 compared by its bits). Raises
+    AssertionError; returns ``max_abs_err`` (0.0)."""
+    out_k = cell_tables(*args, **kw)
+    out_r = cell_tables_ref(*args, **kw)
+    for name, a, b in zip(("t16", "t32", "ids"), out_k, out_r):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"K1 {name}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        ai = a.view(torch.int32) if a.dtype == torch.float32 else a
+        bi = b.view(torch.int32) if b.dtype == torch.float32 else b
+        if not torch.equal(ai, bi):
+            raise AssertionError(f"K1 {name} disagrees with its plain version in "
+                                 f"{int((ai != bi).sum())} entries")
+    return {"max_abs_err": 0.0}
 
 
 cell_tables.launches = 0

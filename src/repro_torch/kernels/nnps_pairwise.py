@@ -22,7 +22,10 @@ Inputs: ``rel (C+1, d, cap)`` in the storage dtype (fp16, bf16, fp32),
 
 On the H100 both are bound by bytes: K5 writes 4·M·cap² bytes per cell
 (2.6 GB at the paper's N = 1,048,576 in 2-D), K4 4·cap·K. The decision
-is ~10 operations per pair.
+is ~10 operations per pair. K5 streams its output: a warp owns a self
+cell and a group of 32 self slots (:func:`adjacency_groups`), decides
+only pairs of occupied slots into bit masks, and writes the masks out
+as 16-byte streaming stores (:func:`adjacency_regions`).
 
 :func:`rcll_neighbor_list_tables` and :func:`rcll_adjacency` launch the
 kernels for CUDA tensors and take the plain versions (``*_ref``) only for
@@ -121,6 +124,31 @@ def kernel_params(*, weights: tuple, r_cell: float, compute_dtype):
     return (ctypes.c_float * 4)(*fparams), (ctypes.c_int * 1)(0)
 
 
+#: Warps of a K5 block (``kAdjWarps`` in the CUDA source).
+ADJ_WARPS = 8
+
+
+def adjacency_groups(cap: int) -> int:
+    """Warps of K5 per self cell: one for each group of 32 self slots."""
+    return -(-cap // 32)
+
+
+def adjacency_regions(c1: int, m: int, cap: int):
+    """Yield (first element, length) of each contiguous region of the
+    flat ``(C+1)·M·cap²`` output that one K5 warp writes, as the kernel
+    computes them: at cap <= 32 a self cell's whole ``M·cap²`` region; at
+    larger caps, per tile k, the group's rows of that tile."""
+    groups = adjacency_groups(cap)
+    for item in range(c1 * groups):
+        c, g = divmod(item, groups)
+        if groups == 1:
+            yield c * m * cap * cap, m * cap * cap
+            continue
+        i0 = 32 * g
+        for k in range(m):
+            yield ((c * m + k) * cap + i0) * cap, min(32, cap - i0) * cap
+
+
 @functools.cache
 def _entries():
     lib = _build.library().lib
@@ -129,7 +157,7 @@ def _entries():
                       + [ctypes.c_void_p] * 3)
     lists.restype = ctypes.c_int
     adj = lib.repro_rcll_adjacency
-    adj.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    adj.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                     + [ctypes.c_void_p] * 3)
     adj.restype = ctypes.c_int
     return lists, adj
@@ -212,7 +240,7 @@ def rcll_adjacency(rel: torch.Tensor, occ: torch.Tensor, nb_ids: torch.Tensor, *
         rc = _entries()[1](
             d, _REL_KIND[rel.dtype], _COMPUTE_KIND[compute_dtype],
             rel.data_ptr(), occ.data_ptr(), nb_ids.data_ptr(), adj.data_ptr(),
-            counts.data_ptr(), c1, cap, m,
+            counts.data_ptr(), c1, cap, m, adjacency_groups(cap),
             ctypes.addressof(fparams), ctypes.addressof(iparams), stream,
         )
     _build.check_rc(rc, "rcll_adjacency")

@@ -19,7 +19,10 @@ from repro_torch.kernels import nnps_pairwise as tnp
 from repro_torch.kernels import rcll_force as trf
 from repro_torch.kernels import rcll_kv_attention as tkv
 from repro_torch.kernels import sph_gradient as tsg
-from test_torch_helpers import (DAM, WCSPH, make_nnps_tiles, make_tiles,  # noqa: F401
+from repro_torch.core import nnps as tnnps
+from repro_torch.core import scheme as tsch
+from repro_torch.kernels import ops as tops
+from test_torch_helpers import (DAM, STORAGE, WCSPH, make_nnps_tiles, make_tiles,  # noqa: F401
                                 one_torch_thread)
 
 
@@ -59,6 +62,95 @@ def test_cell_tables_kernel_bit_identical(cuda_device, n, dim, seed):
         assert a.dtype == c.dtype and a.shape == c.shape
         assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
                            c.view(torch.int32) if c.dtype == torch.float32 else c)
+
+
+def _force_pack_args(monkeypatch, dev, dim, rel, records, seed):
+    """K1's arguments as ops.rcll_force_particles builds them on ``dev``
+    for a random cloud: rel in fp16 or fp32, fp16 or fp32 records."""
+    rng = np.random.default_rng(seed)
+    n = 6000 if dim == 2 else 4000
+    ds = (1.0 / n) ** (1.0 / dim)
+    dom = td.Domain(lo=(0.0,) * dim, hi=(1.0,) * dim, h=1.2 * ds, cell_factor=1.5,
+                    periodic=(True,) + (False,) * (dim - 1))
+    x = torch.as_tensor(rng.uniform(0, 1, (n, dim)).astype(np.float32), device=dev)
+    cap = tcells.robust_capacity(dom, ds, n) + 8
+    ps = trcll.pack_state(dom, trcll.init_state(dom, dom.normalize(x), STORAGE[rel]), cap)
+    v = torch.as_tensor((0.3 * rng.normal(size=(n, dim))).astype(np.float32), device=dev)
+    rho = torch.as_tensor((1.0 + 0.01 * rng.normal(size=n)).astype(np.float32), device=dev)
+    m = torch.full((n,), ds**dim, device=dev)
+    seen, orig = [], tcp.cell_tables
+
+    def capture(*a, **kw):
+        seen.append((a, kw))
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(tcp, "cell_tables", capture)
+    tops.rcll_force_particles(dom, ps.packing.binning, ps.rc, v, m, rho,
+                              scheme=tsch.Scheme(**WCSPH), records_dtype=STORAGE[records])
+    monkeypatch.undo()
+    return seen[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("rel,records", [("fp16", "fp16"), ("fp32", "fp32"), ("fp16", "fp32"),
+                                         ("fp32", "fp16")])
+def test_cell_tables_kernel_force_layouts_bit_identical(cuda_device, monkeypatch, dim, rel,
+                                                        records):
+    """The four slab layouts ops.rcll_force_particles builds, 2-D and 3-D."""
+    args, kw = _force_pack_args(monkeypatch, cuda_device, dim, rel, records, seed=40 + dim)
+    f16, f32 = args[0].shape[1], args[1].shape[1]
+    assert (f16, f32) == {("fp16", "fp16"): (3 * dim, 1), ("fp32", "fp32"): (dim, 1 + 2 * dim),
+                          ("fp16", "fp32"): (2 * dim, 1 + dim),
+                          ("fp32", "fp16"): (2 * dim, 1 + dim)}[(rel, records)]
+    before = tcp.cell_tables.launches
+    tcp.check_against_plain(args, kw)
+    assert tcp.cell_tables.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f16,f32,cap,offset", [
+    (1, 9, 1, 0), (2, 8, 20, 1), (3, 7, 64, 0), (4, 6, 1, 1), (5, 5, 20, 0),
+    (6, 1, 20, 1), (7, 3, 64, 1), (8, 2, 1, 0), (9, 9, 64, 1), (9, 1, 20, 0),
+    (3, 30, 1024, 1),  # one cell's tables past the shared-memory tiles: the direct path
+])
+def test_cell_tables_kernel_widths_bit_identical(cuda_device, f16, f32, cap, offset):
+    """Slab widths 1 to 9, cap 1, 20 and 64, cell-sorted rows: a run of cells
+    at cap next to a run of empty cells, overflowed cells, the last cells
+    full so the last one ends at row N; ``offset`` 1: both slabs are views
+    one row into a larger tensor, so neither starts 16-byte aligned."""
+    rng = np.random.default_rng(100 * f16 + 10 * f32 + cap)
+    c_total = 3000 if cap < 1024 else 300
+    counts = rng.poisson(0.3 * cap + 0.5, c_total)
+    counts[500:700] = cap
+    counts[700:900] = 0
+    counts[1000:1010] = cap + 2
+    counts[-5:] = cap
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    n = int(counts.sum())
+    dev = cuda_device
+    rows16 = torch.as_tensor(rng.integers(-2**15, 2**15, (n + offset, f16)).astype(np.int16),
+                             device=dev)[offset:]
+    rows32 = torch.as_tensor(rng.normal(size=(n + offset, f32)).astype(np.float32),
+                             device=dev)[offset:]
+    fill32 = torch.as_tensor(rng.normal(size=f32).astype(np.float32), device=dev)
+    as_i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
+    args = (rows16, rows32, as_i32(starts), as_i32(counts), fill32)
+    assert (rows16.data_ptr() % 16 != 0) == bool(offset)
+    tcp.check_against_plain(args, dict(cap=cap))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", tcp.FAULTS)
+def test_cell_tables_check_fails_a_planted_fault(cuda_device, monkeypatch, fault):
+    """The bit-for-bit check catches a wrong K1: the last occupied slot of
+    each cell left empty, or empty fp32 slots filled with 0."""
+    args, cap = _pack_inputs(5000, 2, 0)
+    args = tuple(a.to(cuda_device) for a in args)
+    tcp.check_against_plain(args, dict(cap=cap))
+    monkeypatch.setattr(tcp, "kernel_params", tcp.planted_params(fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        tcp.check_against_plain(args, dict(cap=cap))
 
 
 def _tiles_on(t, kw, dev):
@@ -181,6 +273,42 @@ def test_nnps_kernels_bit_identical(cuda_device, dim, n, storage, compute, perio
     assert tnp.check_against_plain("K5", *k5)["hits"] > 0
     assert (tnp.rcll_neighbor_list_tables.launches, tnp.rcll_adjacency.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+def _edge_nnps_tiles(seed, dim, cap, storage):
+    """K5's inputs for a small grid of cells at any cap: random coordinates
+    in each cell and a random {0,1} occupancy with holes anywhere in a row
+    (not a prefix); the sentinel row is empty."""
+    rng = np.random.default_rng(seed)
+    dom = td.Domain(lo=(0.0,) * dim, hi=(1.0,) * dim, h=0.07 if dim == 2 else 0.11,
+                    periodic=(True,) + (False,) * (dim - 1))
+    c1 = dom.ncells_total + 1
+    rel = torch.as_tensor(rng.uniform(-1, 1, (c1, dim, cap)).astype(np.float32)).to(
+        STORAGE[storage])
+    occ = torch.as_tensor((rng.random((c1, cap)) < 0.45).astype(np.float32))
+    occ[-1] = 0.0
+    kw = dict(weights=tuple(dom.cell_weights), r_cell=tnnps.rcll_radius_cell_units(dom))
+    return (rel, occ, tops.nb_with_sentinel(dom, "cpu")), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,cap,storage,compute", [
+    (2, 1, "fp16", torch.float32), (2, 3, "fp16", torch.float32),
+    (2, 20, "fp16", torch.float32), (2, 20, "bf16", torch.float16),
+    (2, 37, "fp32", torch.float16), (2, 128, "bf16", torch.float32),
+    (3, 3, "fp32", torch.float32), (3, 20, "fp16", torch.float16),
+    (3, 37, "bf16", torch.float32),
+])
+def test_adjacency_kernel_edges_bit_identical(cuda_device, dim, cap, storage, compute):
+    """K5 where its design could go wrong: cap 1, 3 and 37 (cap^2 not a
+    multiple of 4, so 16-byte chunks cross rows and tiles and regions
+    start unaligned), cap 37 and 128 (several slot groups and mask words a
+    row), occupancy with holes, 3-D, fp16 compute, bf16 storage."""
+    args, kw = _edge_nnps_tiles(cap + dim, dim, cap, storage)
+    args = tuple(a.to(cuda_device) for a in args)
+    before = tnp.rcll_adjacency.launches
+    assert tnp.check_against_plain("K5", args, dict(kw, compute_dtype=compute))["hits"] > 0
+    assert tnp.rcll_adjacency.launches == before + 1
 
 
 @pytest.mark.cuda

@@ -44,7 +44,20 @@ C0, RHO0 = 1.25, 1.0
 # --------------------------------------------------------------------------
 # K1
 # --------------------------------------------------------------------------
-def _pack_inputs(n, dim, seed):
+#: (F16, F32) of the slabs ops.rcll_force_particles builds, by (rel storage,
+#: records) and dim: the 16-bit slab holds the fp16 rel, the int16 shift and
+#: fp16 velocities; the fp32 slab 1/rho, fp32 rel and fp32 velocities.
+def _force_widths(layout, dim):
+    rel16, rec16 = {"rel16_rec16": (True, True), "rel32_rec32": (False, False),
+                    "rel16_rec32": (True, False), "rel32_rec16": (False, True)}[layout]
+    return dim * (1 + rel16 + rec16), 1 + dim * ((not rel16) + (not rec16))
+
+
+def _pack_inputs(n, dim, seed, layout="mixed"):
+    """Cell-sorted slabs of a random cloud in both packages. ``layout`` "mixed":
+    fp16 rel plus two random int16 columns, three fp32 columns; a force
+    layout (see :func:`_force_widths`): those widths, rel in its slab;
+    "full": "mixed" with cap the largest count, so cells are filled to cap."""
     rng = np.random.default_rng(seed)
     ds = (1.0 / n) ** (1.0 / dim)
     spec = dict(lo=(0.0,) * dim, hi=(1.0,) * dim, h=1.2 * ds)
@@ -55,16 +68,38 @@ def _pack_inputs(n, dim, seed):
     ps = jrcll.pack_state(dj, st, cap)
     b = ps.packing.binning
     starts = np.asarray(jcells.exclusive_cumsum(b.counts))
-    rows16 = np.asarray(ps.rc.rel).view(np.int16)
-    rows16 = np.concatenate([rows16, rng.integers(-300, 300, (n, 2)).astype(np.int16)], 1)
-    rows32 = rng.normal(size=(n, 3)).astype(np.float32)
-    fill32 = np.asarray([1.0, 0.0, -3.5], np.float32)
+    rel16 = np.asarray(ps.rc.rel).view(np.int16)
+    if layout in ("mixed", "full"):
+        rows16 = np.concatenate([rel16, rng.integers(-300, 300, (n, 2)).astype(np.int16)], 1)
+        rows32 = rng.normal(size=(n, 3)).astype(np.float32)
+        fill32 = np.asarray([1.0, 0.0, -3.5], np.float32)
+        if layout == "full":
+            cap = int(np.asarray(b.counts).max())
+    else:
+        f16, f32 = _force_widths(layout, dim)
+        rows32 = rng.normal(size=(n, f32)).astype(np.float32)
+        if layout.startswith("rel16"):
+            rest = rng.integers(-300, 300, (n, f16 - dim)).astype(np.int16)
+            rows16 = np.concatenate([rel16, rest], 1)
+        else:
+            rows16 = rng.integers(-300, 300, (n, f16)).astype(np.int16)
+            rows32[:, 1:1 + dim] = np.asarray(ps.rc.rel, np.float32)
+        fill32 = np.asarray([1.0] + [0.0] * (f32 - 1), np.float32)
     return rows16, rows32, starts, np.asarray(b.counts), fill32, cap, b
 
 
-@pytest.mark.parametrize("n,dim,seed", [(500, 2, 0), (300, 3, 1)])
-def test_cell_tables_ref_matches_pallas(n, dim, seed):
-    rows16, rows32, starts, counts, fill32, cap, b = _pack_inputs(n, dim, seed)
+@pytest.mark.parametrize("n,dim,seed,layout", [
+    (500, 2, 0, "mixed"), (300, 3, 1, "mixed"),
+    # the four slab layouts of ops.rcll_force_particles (widths 1 to 9)
+    (500, 2, 2, "rel16_rec16"), (300, 3, 3, "rel16_rec16"), (500, 2, 4, "rel32_rec32"),
+    (300, 3, 5, "rel32_rec32"), (500, 2, 6, "rel16_rec32"), (300, 3, 7, "rel32_rec16"),
+    # cells filled to cap
+    (500, 2, 8, "full"),
+])
+def test_cell_tables_ref_matches_pallas(n, dim, seed, layout):
+    rows16, rows32, starts, counts, fill32, cap, b = _pack_inputs(n, dim, seed, layout)
+    if layout == "full":
+        assert int((counts == cap).sum()) > 0
     out_j = jcp.cell_tables(
         jnp.asarray(rows16.view(np.uint16)), jnp.asarray(rows32),
         jnp.asarray(starts), jnp.asarray(counts), jnp.asarray(fill32),
@@ -78,7 +113,41 @@ def test_cell_tables_ref_matches_pallas(n, dim, seed):
     np.testing.assert_array_equal(np.asarray(out_j[0]).view(np.int16), out_t[0].numpy())
     for a, c in zip(out_j[1:], out_t[1:]):
         np.testing.assert_array_equal(np.asarray(a).view(np.uint8), c.numpy().view(np.uint8))
-    np.testing.assert_array_equal(out_t[2][:-1].numpy(), np.asarray(b.table))
+    if layout != "full":
+        np.testing.assert_array_equal(out_t[2][:-1].numpy(), np.asarray(b.table))
+
+
+def test_cell_tables_planted_params():
+    """K1's run-time fault argument: 0 from the wrapper, a distinct non-zero
+    code for each fault a check plants, and an unknown fault refused."""
+    assert tcp.kernel_params() == 0
+    codes = [tcp.planted_params(f)() for f in tcp.FAULTS]
+    assert sorted(codes) == list(range(1, len(tcp.FAULTS) + 1))
+    with pytest.raises(ValueError, match="unknown fault"):
+        tcp.planted_params("no_such_fault")
+
+
+@pytest.mark.parametrize("c_total,f16,f32,cap", [
+    (181476, 6, 1, 20), (613, 9, 7, 64), (613, 1, 1, 1), (613, 2, 5, 37), (40, 3, 30, 1024),
+    (611, 5, 3, 7), (2, 1, 1, 3),
+])
+def test_pack_geometry_covers_every_element_once(c_total, f16, f32, cap):
+    """K1's grid: the blocks of each table, one thread a 16-byte chunk,
+    cover every element of t16, t32 and ids exactly once (the last chunk of
+    a table partial) and no thread's chunk lies past its table."""
+    blocks = tcp.pack_geometry(c_total, f16, f32, cap)
+    for (w, eb), nb in zip(((f16, 2), (f32, 4), (1, 4)), blocks):
+        total = (c_total + 1) * w * cap
+        v = 16 // eb
+        threads = nb * tcp.PACK_THREADS
+        starts = np.arange(threads) * v
+        used = starts < total  # a thread past the table returns at once
+        assert used.sum() == -(-total // v) and threads - used.sum() < tcp.PACK_THREADS
+        seen = np.zeros(total, np.int64)
+        for t in range(v):
+            e = starts[used] + t
+            np.add.at(seen, e[e < total], 1)
+        assert (seen == 1).all()
 
 
 # --------------------------------------------------------------------------

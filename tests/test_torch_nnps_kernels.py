@@ -92,6 +92,8 @@ def _eager_tile_decisions(dj, rel_t, occ, nb, compute):
 @pytest.mark.parametrize("n,dim,cap,storage,periodic,interpret", [
     (500, 2, 16, "fp16", False, False), (500, 2, 16, "bf16", True, False),
     (800, 3, 32, "fp16", True, True), (800, 3, 32, "fp32", False, False),
+    # odd caps: cap^2 is not a multiple of 4
+    (500, 2, 19, "fp16", True, True), (800, 3, 37, "bf16", False, False),
 ])
 def test_adjacency_plain_matches_jax(n, dim, cap, storage, periodic, interpret):
     dj, dt, x, f, st_j, st_t, bj, bt = _setup(n, dim, cap, storage, periodic=periodic)
@@ -111,6 +113,27 @@ def test_adjacency_plain_matches_jax(n, dim, cap, storage, periodic, interpret):
     nl = tnnps.rcll_neighbors(dt, st_t.rel, st_t.cell_xy, dtype=TDT[storage],
                               compute_dtype=torch.float32, k=96, binning=bt)
     np.testing.assert_array_equal(cnt_t.numpy().astype(np.int32), nl.count.numpy())
+
+
+@pytest.mark.parametrize("c1,dim,cap", [
+    (7, 2, 20), (5, 2, 3), (4, 2, 1), (6, 2, 32), (3, 2, 33), (3, 3, 37), (2, 2, 128), (2, 3, 20),
+])
+def test_adjacency_regions_cover_every_element_once(c1, dim, cap):
+    """K5's launch geometry: the regions its warps write partition the flat
+    (C+1)·M·cap² output, and each splits into 16-byte aligned chunks plus
+    at most 3 single elements at each end (so a warp stores them in one
+    pass of its 32 lanes)."""
+    m = 3**dim
+    seen = np.zeros(c1 * m * cap * cap, np.int64)
+    regions = list(tnp.adjacency_regions(c1, m, cap))
+    assert len(regions) == c1 * (1 if cap <= 32 else m * tnp.adjacency_groups(cap))
+    for e0, length in regions:
+        head = min((4 - e0 % 4) % 4, length)  # as the kernel's stream_rows splits a region
+        chunks = (length - head) // 4
+        tail = length - head - 4 * chunks
+        assert head < 4 and tail < 4 and (e0 + head) % 4 == 0
+        seen[e0:e0 + length] += 1
+    assert (seen == 1).all()
 
 
 @pytest.mark.parametrize("dim,periodic", [(2, True), (3, False)])
