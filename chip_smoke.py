@@ -4,7 +4,8 @@
     python3 chip_smoke.py                 # all phases but the profile (6)
     python3 chip_smoke.py --phases 1,9    # build + llama3.2-3b served (K6, K7)
     python3 chip_smoke.py --phases 1,9 --parent build/parent  # K7 beside an earlier tree's
-    python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1 and K5 beside it
+    python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1, K3, K4, K5 beside it
+    python3 chip_smoke.py --phases 1,8 --parent build/parent    # K3, K4 and K5 beside it
     python3 chip_smoke.py --phases 1,8    # build + the 1M-particle NNPS path
     python3 chip_smoke.py --phases 1,2    # build + kernel checks only
     python3 chip_smoke.py --phases 6      # the profile
@@ -24,7 +25,9 @@ Phases (each prints its own lines and raises on failure):
      then K4 (neighbor lists) and K5 (adjacency) bit for bit and K3
      (fused A5 gradient) by ``sph_gradient.check_against_plain``, on
      random clouds binned by ``bin_by_cell_id``, for fp16/bf16/fp32
-     storage, fp32 and fp16 compute, periodic and not; then K6 (RCLL-KV
+     storage, fp32 and fp16 compute, periodic and not, and on occupancy
+     masks with holes anywhere in a row (K4 at K = 3, counts past K, and
+     at cap 37 with K = 50, not a multiple of 4); then K6 (RCLL-KV
      decode) at int8/fp16/bf16 residuals and K7 (flash prefill) at
      bf16/fp32, causal and not, by their ``check_against_plain``
      (``flash_attention.rounding_bound`` and ``NORMWISE_LIMIT``), on
@@ -53,9 +56,12 @@ Phases (each prints its own lines and raises on failure):
      off, the last occupied slot of each neighbor tile skipped), the K2
      check at the main path's inputs, phase 2 and phase 5 must each fail
      on each; in K4 alone and in K5
-     alone (r_cell^2 1% larger, the self pair kept) and in K3 (the sign of f_j - f_i
-     flipped, one cell edge 1% longer), phase 2's NNPS checks and
-     phase 8's checks must each fail on each; in K6 (the length mask one
+     alone (r_cell^2 1% larger, the self pair kept), in K4 (padding 0 for
+     -1, counts saturated at K) and in K3 (the sign of f_j - f_i
+     flipped, one cell edge 1% longer, the walk one occupied slot short
+     of each neighbor row, a row's first empty slot taken as its end),
+     phase 2's NNPS checks and phase 8's checks must each fail on each
+     (but phase 8 for the last, whose tables are prefix-occupied); in K6 (the length mask one
      block short, the int8 divisor 127 -> 128, the merge of the key splits
      skipping the last one) and in K7 (the causal mask
      one column late; P rounded to bf16 once, its hi part alone),
@@ -70,9 +76,11 @@ Phases (each prints its own lines and raises on failure):
      binning overflow, K4 at most 48 neighbors and equal to
      ``nnps.rcll_neighbors``, K5's counts equal to K4's, the gradient of
      x^3 within the interior RMS gate; each kernel held against its plain
-     version and timed beside it and its bound (K5 also in a CUDA graph,
-     with the bandwidth it reaches, and beside the design of ``--parent``
-     when given); the paper's Table 2
+     version (K4 also at K = 8, its counts past K) and timed beside it
+     and its bound, in a CUDA graph, with the bandwidth it reaches, and
+     beside the design of ``--parent`` when given (K4 also beside
+     ``fill_(-1)`` of its output bytes and K5 beside ``zero_``, each
+     with 16-byte streaming stores required in its SASS); the paper's Table 2
      wrong-determination counts against the fp64 truth (readings);
   9. the LM serving path: ``ServeRun("llama3.2-3b", smoke=False, batch 4,
      prompt 1024, gen 160)`` at full width and depth with random weights
@@ -241,14 +249,19 @@ def time_ms_graph(fn, reps: int = 50) -> float:
     return t0.elapsed_time(t1) / (3 * reps)
 
 
-def store_yardstick(nbytes: int, reps: int = 50) -> str:
-    """A clause giving the time of ``torch.Tensor.zero_`` on ``nbytes`` (the
-    card's store rate for a kernel's output bytes, reads aside), in a CUDA
-    graph; a yardstick beside the bound, not a library call of the function."""
-    buf = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
-    ms = time_ms_graph(buf.zero_, reps)
+def store_yardstick(nbytes: int, reps: int = 50, fill: int | None = None) -> str:
+    """A clause giving the time of ``torch.Tensor.zero_`` on ``nbytes``, or
+    of ``fill_(fill)`` on them as int32 (the card's store rate for a
+    kernel's output bytes, reads aside), in a CUDA graph; a yardstick
+    beside the bound, not a library call of the function."""
+    if fill is None:
+        buf = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        ms, what = time_ms_graph(buf.zero_, reps), "zero_"
+    else:
+        buf = torch.empty(nbytes // 4, dtype=torch.int32, device="cuda")
+        ms, what = time_ms_graph(lambda: buf.fill_(fill), reps), f"fill_({fill})"
     del buf
-    return (f"; zero_ of the {nbytes} output bytes {ms:.4f} ms "
+    return (f"; {what} of the {nbytes} output bytes {ms:.4f} ms "
             f"({nbytes / ms / 1e9:.3f} TB/s)")
 
 
@@ -350,8 +363,15 @@ def k4_work(args, kw):
     c1, d, cap = rel.shape
     pairs = _occupied_pairs(occ, nb_ids)
     nbytes = (rel.numel() * rel.element_size() + occ.numel() * 4 + ids.numel() * 4
-              + nb_ids.numel() * 4 + c1 * cap * kw["k_slots"] * 4 + c1 * cap * 4)
+              + nb_ids.numel() * 4 + k4_out_bytes(args, kw))
     return pairs, pairs * nnps_decision_ops(d), nbytes
+
+
+def k4_out_bytes(args, kw) -> int:
+    """Bytes of K4's lists and counts."""
+    rel = args[0]
+    c1, _, cap = rel.shape
+    return c1 * cap * kw["k_slots"] * 4 + c1 * cap * 4
 
 
 def k5_out_bytes(args) -> int:
@@ -528,8 +548,44 @@ def _nnps_cloud_inputs(dim, n, storage, periodic, seed, dev=torch.device("cuda")
     return store, int(b.overflow)
 
 
+def _holes_nnps_inputs(dim, cap, storage, seed, dev=torch.device("cuda")):
+    """K3/K4/K5 tables on a small grid of cells (as the card tests'
+    ``_edge_nnps_tiles`` builds them): random coordinates in each cell, a
+    random {0,1} occupancy with holes anywhere in a row (the binning packs
+    a prefix, so phase 8 cannot show a prefix assumption), distinct ids in
+    the occupied slots, a random f; the sentinel row is empty. Returns
+    the tables and the keyword arguments the kernels share."""
+    from repro_torch.core import nnps
+    from repro_torch.core.domain import Domain
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    dom = Domain(lo=(0.0,) * dim, hi=(1.0,) * dim, h=0.07 if dim == 2 else 0.11,
+                 periodic=(True,) + (False,) * (dim - 1))
+    c1 = dom.ncells_total + 1
+    rel = torch.as_tensor(rng.uniform(-1, 1, (c1, dim, cap)).astype(np.float32)).to(
+        STORAGE[storage])
+    occ = torch.as_tensor((rng.random((c1, cap)) < 0.45).astype(np.float32))
+    occ[-1] = 0.0
+    ids = torch.as_tensor(rng.permutation(c1 * cap).astype(np.int32).reshape(c1, cap))
+    ids[occ == 0] = -1
+    f = torch.as_tensor(rng.normal(size=(c1, cap)).astype(np.float32))
+    t = {k: v.to(dev) for k, v in dict(rel=rel, f=f, occ=occ, ids=ids).items()}
+    t["nb_ids"] = ops.nb_with_sentinel(dom, dev)
+    kw = dict(weights=tuple(dom.cell_weights), r_cell=nnps.rcll_radius_cell_units(dom))
+    return t, kw, dict(kw, hc_phys=tuple(dom.cell_sizes), h=dom.h, dim=dim)
+
+
+#: Phase 2's masks with holes: (dim, cap, storage, compute, K4's K). K = 3
+#: puts counts past K; K = 50, not a multiple of 4, takes K4's stores of
+#: single ids, at cap 37 (two words of occupancy a row).
+HOLES_CASES = ((2, 20, "fp16", torch.float16, 3), (2, 37, "bf16", torch.float32, 50),
+               (3, 20, "fp32", torch.float32, 3))
+
+
 def phase2_nnps() -> None:
-    """K4 and K5 bit for bit and K3 within its bound, on random clouds."""
+    """K4 and K5 bit for bit and K3 within its bound, on random clouds and
+    on masks with holes."""
     from repro_torch.kernels import nnps_pairwise, sph_gradient
 
     cases = [
@@ -552,6 +608,20 @@ def phase2_nnps() -> None:
         log(f"[2] NNPS dim {dim} N {n} storage {storage} compute "
             f"{str(compute).split('.')[-1]} periodic {periodic}: K4 bit-identical "
             f"({c4['hits']} hits, K = 64), K5 bit-identical ({c5['hits']} hits); "
+            f"{k3_summary(c3)}")
+    for i, (dim, cap, storage, compute, k) in enumerate(HOLES_CASES):
+        t, kw, kw3 = _holes_nnps_inputs(dim, cap, storage, seed=300 + i)
+        a4 = (t["rel"], t["occ"], t["ids"], t["nb_ids"])
+        c4 = nnps_pairwise.check_against_plain("K4", a4, dict(kw, k_slots=k,
+                                                              compute_dtype=compute))
+        c5 = nnps_pairwise.check_against_plain("K5", (t["rel"], t["occ"], t["nb_ids"]),
+                                               dict(kw, compute_dtype=compute))
+        c3 = sph_gradient.check_against_plain((t["rel"], t["f"], t["occ"], t["nb_ids"]),
+                                              dict(kw3, nnps_dtype=compute))
+        log(f"[2] NNPS mask with holes dim {dim} cap {cap} cells {t['occ'].shape[0]} "
+            f"occupied {int((t['occ'] > 0).sum())} storage {storage} compute "
+            f"{str(compute).split('.')[-1]}: K4 bit-identical ({c4['hits']} hits, K = {k}, "
+            f"{c4['past_k']} counts past K), K5 bit-identical ({c5['hits']} hits); "
             f"{k3_summary(c3)}")
 
 
@@ -807,12 +877,22 @@ def k1_planted_faults(store: dict) -> list:
     return missed
 
 
+#: (fault, check) pairs that cannot fail: phase 8's tables come from the
+#: binning, which packs each cell's particles first, so a row's first empty
+#: slot is its end there.
+NNPS_CHECKS_BLIND_TO = {("K3:hole_as_end", "phase 8")}
+
+
 def nnps_planted_faults() -> list:
     """Faults planted in K4 or K5 alone (r_cell^2 1% larger; the self pair
-    kept) and in K3 (the sign of f_j - f_i flipped; the first cell edge 1%
-    longer) through their run-time parameters: phase 2's NNPS checks and
-    phase 8's checks (the path driven again with the faulty kernel) must
-    each fail on each. Returns the (fault, check) pairs that passed."""
+    kept), in K4 alone through ``planted_params`` (padding 0 for -1;
+    counts saturated at K) and in K3 (the sign of f_j - f_i flipped; the
+    first cell edge 1% longer; through ``planted_params``, the walk one
+    occupied slot short of each neighbor row, and a row's first empty slot
+    taken as its end) through their run-time parameters: phase 2's NNPS
+    checks and phase 8's checks (the path driven again with the faulty
+    kernel) must each fail on each, but for :data:`NNPS_CHECKS_BLIND_TO`.
+    Returns the (fault, check) pairs that passed where they must fail."""
     from repro_torch.kernels import nnps_pairwise, sph_gradient
 
     def nnps_fault(fault):
@@ -830,45 +910,61 @@ def nnps_planted_faults() -> list:
             else:
                 i[0] = 1  # keep_self
             return f, i
-        return nnps_pairwise, faulty
+        return nnps_pairwise, "kernel_params", faulty
+
+    def list_fault(fault):  # K5 reads neither field
+        return nnps_pairwise, "kernel_params", nnps_pairwise.planted_params(fault.split(":")[1])
 
     def gradient_fault(fault):
         params = sph_gradient.kernel_params
 
         def faulty(**kw):
             f = params(**kw)
-            if fault == "df_sign":
+            if fault == "K3:df_sign":
                 f[9] = -1.0
             else:
                 f[4] *= 1.01  # hc_phys[0]
             return f
-        return sph_gradient, faulty
+        return sph_gradient, "kernel_params", faulty
+
+    def walk_fault(fault):
+        return sph_gradient, "walk_params", sph_gradient.planted_params(fault.split(":")[1])
 
     checks = (("phase 2 NNPS", phase2_nnps),
               ("phase 8", lambda: nnps_path_checks(nnps_path_run())))
     missed = []
-    faults = [(f"{kernel}:{fault}", nnps_fault) for kernel in ("K4", "K5")
-              for fault in ("r2_cell_1pct", "self_pair")]
-    for fault, plant in faults + [("df_sign", gradient_fault), ("hc0_1pct", gradient_fault)]:
+    faults = ([(f"{kernel}:{fault}", nnps_fault) for kernel in ("K4", "K5")
+               for fault in ("r2_cell_1pct", "self_pair")]
+              + [(f"K4:{fault}", list_fault) for fault in nnps_pairwise.FAULTS]
+              + [("K3:df_sign", gradient_fault), ("K3:hc0_1pct", gradient_fault)]
+              + [(f"K3:{fault}", walk_fault) for fault in sph_gradient.FAULTS])
+    for fault, plant in faults:
         for name, check in checks:
-            mod, faulty = plant(fault)
-            params = mod.kernel_params
-            mod.kernel_params = faulty
+            mod, attr, faulty = plant(fault)
+            params = getattr(mod, attr)
+            setattr(mod, attr, faulty)
             try:
                 out = check()
+                if (fault, name) in NNPS_CHECKS_BLIND_TO:
+                    log(f"[7] {fault}: {name} passed, as it must: its tables are prefix-"
+                        f"occupied (the binning packs each cell first), so a row's first "
+                        f"empty slot is its end there; phase 2's masks with holes catch it")
+                    continue
                 missed.append((fault, name))
                 log(f"[7] {fault}: {name} PASSED: the fault was not caught ({out})")
             except AssertionError as e:
                 log(f"[7] {fault}: {name} failed, as it must: {e}")
             finally:
-                mod.kernel_params = params
+                setattr(mod, attr, params)
     return missed
 
 
 #: Phase 8's NNPS path: the paper's 1M-particle 2-D gradient case and the
-#: list width of benchmarks/table6_sort_locality.py.
+#: list width of benchmarks/table6_sort_locality.py; K4 is also held to
+#: its plain version at a K the counts pass (true counts past K).
 NNPS_DS = 1.0 / 1024
 NNPS_K = 48
+NNPS_K_SMALL = 8
 
 
 def nnps_path_run(dev=torch.device("cuda")) -> dict:
@@ -937,6 +1033,8 @@ def nnps_path_checks(run: dict) -> dict:
     a3, kw3 = run["store"]["k3"]
     return dict(max_count=max_count, rms=rms, interior=int(interior.sum()),
                 k4=nnps_pairwise.check_against_plain("K4", a4, kw4),
+                k4_small=nnps_pairwise.check_against_plain(
+                    "K4", a4, dict(kw4, k_slots=NNPS_K_SMALL)),
                 k5=nnps_pairwise.check_against_plain("K5", a5, kw5),
                 k3=sph_gradient.check_against_plain(a3, kw3))
 
@@ -960,7 +1058,8 @@ def phase8_nnps_path(results: dict, parent: Path | None = None) -> None:
         f"equal nnps.rcll_neighbors (fp16 storage, fp32 compute); K5 counts equal K4's; "
         f"interior RMS of d(x^3)/dx vs 3x^2: {c['rms']:.6e} over {c['interior']} particles "
         f"(gate 0.15)")
-    log(f"[8] kernel vs plain at these inputs: K4 bit-identical ({c['k4']['hits']} hits), "
+    log(f"[8] kernel vs plain at these inputs: K4 bit-identical ({c['k4']['hits']} hits; "
+        f"also at K = {NNPS_K_SMALL}, {c['k4_small']['past_k']} counts past K), "
         f"K5 bit-identical ({c['k5']['hits']} hits); {k3_summary(c['k3'])}")
 
     # The paper's Table 2: wrong determinations against the fp64 truth.
@@ -1020,14 +1119,18 @@ def phase8_nnps_path(results: dict, parent: Path | None = None) -> None:
         plain_ms = time_ms(lambda: plain(*a, **kw), reps=3, warmup=1)
         pairs, ops_n, nbytes = work(a, kw)
         bms, by = bound(nbytes, ops_n)
-        extra = ""
-        if key == "k5":  # 8 launches a graph: each call allocates its 2.7 GB output
-            eager, ms = ms, time_ms_graph(lambda: fn(*a, **kw), reps=8)
-            extra = (f"; {ms:.4f} ms a launch in a CUDA graph ({eager:.4f} ms launched one by "
-                     f"one from Python), {nbytes / ms / 1e9:.3f} TB/s reached of 3.35"
-                     + store_yardstick(k5_out_bytes(a), reps=8)
-                     + wide_stores("adjacency_kernel", "STG.E.EF.128")
-                     + parent_times(parent, key, a, kw, ms, reps=8))
+        # launches a graph: each K5 call allocates its 2.7 GB output, each K4 call 0.7 GB
+        reps = {"k3": 50, "k4": 10, "k5": 8}[key]
+        eager, ms = ms, time_ms_graph(lambda: fn(*a, **kw), reps=reps)
+        extra = (f"; {ms:.4f} ms a launch in a CUDA graph ({eager:.4f} ms launched one by "
+                 f"one from Python), {nbytes / ms / 1e9:.3f} TB/s reached of 3.35")
+        if key == "k4":
+            extra += (store_yardstick(k4_out_bytes(a, kw), reps=reps, fill=-1)
+                      + wide_stores("neighbor_lists_kernel", "STG.E.EF.128"))
+        if key == "k5":
+            extra += (store_yardstick(k5_out_bytes(a), reps=reps)
+                      + wide_stores("adjacency_kernel", "STG.E.EF.128"))
+        extra += parent_times(parent, key, a, kw, ms, reps=reps)
         log(f"[8] {key.upper()} {name} rel {tuple(a[0].shape)} {a[0].dtype}: {ms:.4f} ms "
             f"(plain {plain_ms:.4f} ms), bound {bms:.4f} ms by {by} ({pairs} pairs decided, "
             f"{ops_n:.4g} ops, {nbytes} bytes){extra}")
@@ -1715,8 +1818,8 @@ def main() -> int:
     ap.add_argument("--phases", default="1,2,3,4,5,7,8,9",
                     help="comma-separated phases to run (default: all but 6)")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of an earlier tree whose K1, K5 and K7 phases 3, 8 and 9 "
-                         "time beside this tree's")
+                    help="a checkout of an earlier tree whose K1, K3-K5 and K7 phases 3, 8 "
+                         "and 9 time beside this tree's")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():

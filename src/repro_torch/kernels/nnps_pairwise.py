@@ -21,11 +21,19 @@ Inputs: ``rel (C+1, d, cap)`` in the storage dtype (fp16, bf16, fp32),
 (default: fp16 storage decodes exactly) or fp16 (the paper's arithmetic).
 
 On the H100 both are bound by bytes: K5 writes 4·M·cap² bytes per cell
-(2.6 GB at the paper's N = 1,048,576 in 2-D), K4 4·cap·K. The decision
-is ~10 operations per pair. K5 streams its output: a warp owns a self
-cell and a group of 32 self slots (:func:`adjacency_groups`), decides
-only pairs of occupied slots into bit masks, and writes the masks out
-as 16-byte streaming stores (:func:`adjacency_regions`).
+(2.6 GB at the paper's N = 1,048,576 in 2-D), K4 4·cap·K (0.70 GB at K =
+48), most of them zeros or -1 padding. The decision is ~10 operations
+per pair. Both decide only pairs of occupied slots and stream their
+output as 16-byte streaming stores. In K5 a warp owns a self cell and a
+group of 32 self slots (:func:`adjacency_groups`) and keeps each row's
+hits as bit masks (:func:`adjacency_regions`). K4 gives
+one thread to each occupied self slot of :data:`LIST_CELLS` consecutive
+cells, which walks the neighbors' occupied slots (their occupancy as bit
+words from a first pass, :func:`staging_scratch`) and appends each hit
+(its neighbor tile and slot, in 16 bits) to its row of a shared-memory
+stage (:func:`list_stride`); the block writes the rows of its empty
+slots before the walk and its staged rows, each hit's id gathered, after
+it, as 16-byte streaming stores (:func:`list_regions`).
 
 :func:`rcll_neighbor_list_tables` and :func:`rcll_adjacency` launch the
 kernels for CUDA tensors and take the plain versions (``*_ref``) only for
@@ -116,12 +124,34 @@ def rcll_neighbor_list_tables_ref(rel: torch.Tensor, occ: torch.Tensor, ids: tor
 def kernel_params(*, weights: tuple, r_cell: float, compute_dtype):
     """The kernels' run-time parameters: the weights and r_cell² rounded
     once from double to the compute dtype on the host (as the plain
-    version rounds them), and the keep-the-self-pair flag (0; a check can
-    plant 1 without touching the source)."""
+    version rounds them); the keep-the-self-pair flag (0), K4's padding id
+    (-1) and K4's count-at-K flag (0, the true counts). A check can plant
+    a fault through them without touching the source."""
     np_dt = np.float16 if compute_dtype == torch.float16 else np.float32
     w = [float(np_dt(x)) for x in weights] + [0.0] * (3 - len(weights))
     fparams = w + [float(np_dt(float(r_cell) ** 2))]
-    return (ctypes.c_float * 4)(*fparams), (ctypes.c_int * 1)(0)
+    return (ctypes.c_float * 4)(*fparams), (ctypes.c_int * 3)(0, -1, 0)
+
+
+#: K4's faults that :func:`planted_params` plants.
+FAULTS = ("pad_zero", "count_at_k")
+
+
+def planted_params(fault: str):
+    """A stand-in for :func:`kernel_params` with one of K4's faults
+    planted: the lists padded with 0 instead of -1, or each count
+    saturated at K. A check rebinds ``kernel_params`` to it, and must then
+    fail; K5 reads neither field."""
+    if fault not in FAULTS:
+        raise ValueError(f"unknown fault {fault!r}, not in {FAULTS}")
+    clean = kernel_params
+
+    def faulty(**kw):
+        f, i = clean(**kw)
+        i[FAULTS.index(fault) + 1] = 0 if fault == "pad_zero" else 1
+        return f, i
+
+    return faulty
 
 
 #: Warps of a K5 block (``kAdjWarps`` in the CUDA source).
@@ -149,11 +179,50 @@ def adjacency_regions(c1: int, m: int, cap: int):
             yield ((c * m + k) * cap + i0) * cap, min(32, cap - i0) * cap
 
 
+#: Cells of a K4 block, its threads (one work row, an occupied self slot,
+#: each a batch) and the shared memory its stage may take (``kListCells``,
+#: ``kListThreads``, ``kListStageBytes`` in the CUDA source).
+LIST_CELLS = 16
+LIST_THREADS = 128
+LIST_STAGE_BYTES = 24 * 1024
+
+
+def list_stride(k_slots: int) -> int:
+    """Hits a row of K4's stage holds (2 bytes each: the neighbor tile and
+    slot, whose id the write-out gathers): K rounded up to a multiple of 4,
+    then to an odd multiple of 4, so that a row's 4-hit reads are aligned
+    and neighboring rows start on different banks; 0 (the unstaged path,
+    each thread writing its own row) when the block's stage would pass
+    :data:`LIST_STAGE_BYTES`."""
+    stride = -(-k_slots // 4) * 4
+    if stride % 8 == 0:
+        stride += 4
+    return stride if 2 * LIST_THREADS * stride <= LIST_STAGE_BYTES else 0
+
+
+def staging_scratch(c1: int, cap: int, device, records: bool = False) -> list[torch.Tensor]:
+    """Scratch of the staging pass K3 and K4 run first: each row's
+    occupancy bit words and, with ``records``, each slot's record
+    (coordinates and a payload, 16 bytes at most) for one load a slot."""
+    out = [torch.empty((c1, -(-cap // 32)), dtype=torch.int32, device=device)]
+    if records:
+        out.append(torch.empty((c1, cap, 4), dtype=torch.int32, device=device))
+    return out
+
+
+def list_regions(c1: int, cap: int, k_slots: int):
+    """Yield (first element, length) of each contiguous region of the
+    flat ``(C+1)·cap·K`` output that one K4 block writes, as the kernel
+    computes them: the rows of its :data:`LIST_CELLS` cells."""
+    for c0 in range(0, c1, LIST_CELLS):
+        yield c0 * cap * k_slots, min(LIST_CELLS, c1 - c0) * cap * k_slots
+
+
 @functools.cache
 def _entries():
     lib = _build.library().lib
     lists = lib.repro_rcll_neighbor_lists
-    lists.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    lists.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p] * 3)
     lists.restype = ctypes.c_int
     adj = lib.repro_rcll_adjacency
@@ -203,14 +272,15 @@ def rcll_neighbor_list_tables(rel: torch.Tensor, occ: torch.Tensor, ids: torch.T
         raise ValueError(f"k_slots must be >= 1, got {k_slots}")
     out = torch.empty((c1, cap, k_slots), dtype=torch.int32, device=dev)
     counts = torch.empty((c1, cap), dtype=torch.float32, device=dev)
+    (words,) = staging_scratch(c1, cap, dev)
     fparams, iparams = kernel_params(weights=weights, r_cell=r_cell, compute_dtype=compute_dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entries()[0](
             d, _REL_KIND[rel.dtype], _COMPUTE_KIND[compute_dtype],
             rel.data_ptr(), occ.data_ptr(), ids.data_ptr(), nb_ids.data_ptr(),
-            out.data_ptr(), counts.data_ptr(), c1, cap, m, k_slots,
-            ctypes.addressof(fparams), ctypes.addressof(iparams), stream,
+            out.data_ptr(), counts.data_ptr(), words.data_ptr(), c1, cap, m, k_slots,
+            list_stride(k_slots), ctypes.addressof(fparams), ctypes.addressof(iparams), stream,
         )
     _build.check_rc(rc, "rcll_neighbor_list_tables")
     _LISTS.launches += 1
@@ -251,8 +321,8 @@ def rcll_adjacency(rel: torch.Tensor, occ: torch.Tensor, nb_ids: torch.Tensor, *
 def check_against_plain(kernel: str, args: tuple, kw: dict) -> dict:
     """Launch K4 (``kernel="K4"``) or K5 (``"K5"``) and its plain version
     on the same inputs and require every output to be bit-identical.
-    Raises AssertionError; returns the number of hits and
-    ``max_abs_err`` (0.0)."""
+    Raises AssertionError; returns the number of hits, ``max_abs_err``
+    (0.0) and, for K4, the number of counts past K (``past_k``)."""
     fn, ref, parts = {
         "K4": (rcll_neighbor_list_tables, rcll_neighbor_list_tables_ref, ("ids", "counts")),
         "K5": (rcll_adjacency, rcll_adjacency_ref, ("adj", "counts")),
@@ -265,7 +335,10 @@ def check_against_plain(kernel: str, args: tuple, kw: dict) -> dict:
         if not torch.equal(a, b):
             raise AssertionError(f"{kernel} {part} disagrees with its plain version in "
                                  f"{int((a != b).sum())} entries")
-    return {"hits": int(out_r[1].sum()), "max_abs_err": 0.0}
+    res = {"hits": int(out_r[1].sum()), "max_abs_err": 0.0}
+    if kernel == "K4":
+        res["past_k"] = int((out_r[1] > kw["k_slots"]).sum())
+    return res
 
 
 rcll_neighbor_list_tables.launches = 0

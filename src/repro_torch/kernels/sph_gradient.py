@@ -20,7 +20,13 @@ int32. Outputs ``num``, ``den (C+1, d, cap)`` f32.
 Its least time on the H100 is close to even between bytes and
 operations: at the paper's 1M-particle 2-D case ~0.11 GB move against
 ~13 operations per decided pair and ~40 per accepted pair (1.4e9), and
-the bytes win by a little (``chip_smoke.py`` ``k3_work``; PERF.md).
+the bytes win by a little (``chip_smoke.py`` ``k3_work``; PERF.md). The
+kernel decides only pairs of occupied slots: a first pass turns each
+row's occupancy mask into bit words and packs each occupied slot's
+coordinates and f for one load (:func:`nnps_pairwise.staging_scratch`),
+and the second gives one thread to each occupied self slot of 32
+consecutive cells (:func:`work_rows`), which walks the neighbors'
+occupied slots tile by tile; empty self slots are written as zeros.
 
 :func:`rcll_gradient` launches the kernel for CUDA tensors and takes the
 plain version :func:`rcll_gradient_ref` only for CPU tensors. Their
@@ -41,7 +47,7 @@ from repro_torch.core import cells as cells_lib
 from repro_torch.core.precision import NNPS_STORE
 from repro_torch.kernels import _build, tiling
 from repro_torch.kernels.nnps_pairwise import (_COMPUTE_KIND, _REL_KIND, _tile_decision,
-                                               check_inputs)
+                                               check_inputs, staging_scratch)
 from repro_torch.kernels.rcll_force import _check
 
 #: Peak bytes of pair intermediates per chunk of the plain version.
@@ -128,6 +134,73 @@ def check_against_plain(args: tuple, kw: dict) -> dict:
     return res
 
 
+#: Cells of a block of the gradient pass (``kCellsPerBlock`` in the source).
+CELLS_PER_BLOCK = 32
+
+
+def occupancy_words(occ: torch.Tensor) -> np.ndarray:
+    """(C+1, ceil(cap / 32)) uint32: bit s of word q of row c is slot
+    32 q + s occupied, as the kernel's first pass and its ballots form
+    them."""
+    c1, cap = occ.shape
+    bits = np.zeros((c1, -(-cap // 32) * 32), np.uint64)
+    bits[:, :cap] = (occ > 0).cpu().numpy()
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    return (bits.reshape(c1, -1, 32) * weights).sum(axis=2).astype(np.uint32)
+
+
+def work_rows(occ: torch.Tensor) -> list:
+    """(cell, slot) of each work row of the gradient pass, in the order
+    the kernel numbers them, by its arithmetic: block by block of
+    :data:`CELLS_PER_BLOCK` consecutive rows, the exclusive scan of the
+    cells' popcounts, the cell of work row w the last one whose start is
+    <= w, and its slot the rank-th set bit of the cell's words."""
+    words = occupancy_words(occ)
+    rows = []
+    for c0 in range(0, words.shape[0], CELLS_PER_BLOCK):
+        block = words[c0:c0 + CELLS_PER_BLOCK]
+        counts = [sum(bin(int(x)).count("1") for x in row) for row in block]
+        starts = np.concatenate([[0], np.cumsum(counts)])
+        for wr in range(int(starts[-1])):
+            ci = int(np.searchsorted(starts[:-1], wr, side="right")) - 1
+            rank, q = wr - int(starts[ci]), 0
+            while rank >= bin(int(block[ci, q])).count("1"):
+                rank -= bin(int(block[ci, q])).count("1")
+                q += 1
+            word = int(block[ci, q])
+            for _ in range(rank):
+                word &= word - 1
+            rows.append((c0 + ci, 32 * q + (word & -word).bit_length() - 1))
+    return rows
+
+
+#: The faults :func:`planted_params` plants in the walk.
+FAULTS = ("skip_last_occupied", "hole_as_end")
+
+
+def walk_params():
+    """The walk's run-time fault flags, both 0: the last occupied slot of
+    each neighbor row skipped, and a row's first empty slot taken as its
+    end (:func:`planted_params` sets one without touching the source)."""
+    return (ctypes.c_int * 2)(0, 0)
+
+
+def planted_params(fault: str):
+    """A stand-in for :func:`walk_params` with ``fault`` planted. A check
+    rebinds ``walk_params`` to it, and must then fail (a prefix-occupied
+    table, as the binning packs, cannot show ``hole_as_end``)."""
+    if fault not in FAULTS:
+        raise ValueError(f"unknown fault {fault!r}, not in {FAULTS}")
+    clean = walk_params
+
+    def faulty():
+        flags = clean()
+        flags[FAULTS.index(fault)] = 1
+        return flags
+
+    return faulty
+
+
 def kernel_params(*, weights: tuple, r_cell: float, hc_phys: tuple, h: float, dim: int,
                   nnps_dtype):
     """The kernel's run-time parameters: weights and r_cell² rounded once
@@ -146,8 +219,8 @@ def kernel_params(*, weights: tuple, r_cell: float, hc_phys: tuple, h: float, di
 @functools.cache
 def _entry():
     fn = _build.library().lib.repro_rcll_gradient
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 2)
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
 
@@ -173,14 +246,16 @@ def rcll_gradient(rel: torch.Tensor, f: torch.Tensor, occ: torch.Tensor, nb_ids:
     _check(f, "f", (torch.float32,), (c1, cap), dev)
     num = torch.empty((c1, d, cap), dtype=torch.float32, device=dev)
     den = torch.empty((c1, d, cap), dtype=torch.float32, device=dev)
+    words, recs = staging_scratch(c1, cap, dev, records=True)
     fparams = kernel_params(**kw)
+    iparams = walk_params()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry()(
             d, _REL_KIND[rel.dtype], _COMPUTE_KIND[nnps_dtype],
             rel.data_ptr(), f.data_ptr(), occ.data_ptr(), nb_ids.data_ptr(),
-            num.data_ptr(), den.data_ptr(), c1, cap, m,
-            ctypes.addressof(fparams), stream,
+            num.data_ptr(), den.data_ptr(), words.data_ptr(), recs.data_ptr(), c1, cap, m,
+            ctypes.addressof(fparams), ctypes.addressof(iparams), stream,
         )
     _build.check_rc(rc, "rcll_gradient")
     _WRAPPER.launches += 1

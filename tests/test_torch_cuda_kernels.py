@@ -276,9 +276,12 @@ def test_nnps_kernels_bit_identical(cuda_device, dim, n, storage, compute, perio
 
 
 def _edge_nnps_tiles(seed, dim, cap, storage):
-    """K5's inputs for a small grid of cells at any cap: random coordinates
-    in each cell and a random {0,1} occupancy with holes anywhere in a row
-    (not a prefix); the sentinel row is empty."""
+    """K3/K4/K5 inputs for a small grid of cells at any cap: random
+    coordinates in each cell, a random {0,1} occupancy with holes anywhere
+    in a row (not a prefix), distinct ids in the occupied slots and -1 in
+    the empty ones, and a random field f; the sentinel row is empty.
+    Returns a dict of (rel, f, occ, ids, nb_ids) tables and the keyword
+    arguments the kernels share (weights, r_cell, hc_phys, h, dim)."""
     rng = np.random.default_rng(seed)
     dom = td.Domain(lo=(0.0,) * dim, hi=(1.0,) * dim, h=0.07 if dim == 2 else 0.11,
                     periodic=(True,) + (False,) * (dim - 1))
@@ -287,8 +290,13 @@ def _edge_nnps_tiles(seed, dim, cap, storage):
         STORAGE[storage])
     occ = torch.as_tensor((rng.random((c1, cap)) < 0.45).astype(np.float32))
     occ[-1] = 0.0
-    kw = dict(weights=tuple(dom.cell_weights), r_cell=tnnps.rcll_radius_cell_units(dom))
-    return (rel, occ, tops.nb_with_sentinel(dom, "cpu")), kw
+    ids = torch.as_tensor(rng.permutation(c1 * cap).astype(np.int32).reshape(c1, cap))
+    ids[occ == 0] = -1
+    f = torch.as_tensor(rng.normal(size=(c1, cap)).astype(np.float32))
+    tabs = dict(rel=rel, f=f, occ=occ, ids=ids, nb_ids=tops.nb_with_sentinel(dom, "cpu"))
+    kw = dict(weights=tuple(dom.cell_weights), r_cell=tnnps.rcll_radius_cell_units(dom),
+              hc_phys=tuple(dom.cell_sizes), h=dom.h, dim=dim)
+    return tabs, kw
 
 
 @pytest.mark.cuda
@@ -304,11 +312,78 @@ def test_adjacency_kernel_edges_bit_identical(cuda_device, dim, cap, storage, co
     multiple of 4, so 16-byte chunks cross rows and tiles and regions
     start unaligned), cap 37 and 128 (several slot groups and mask words a
     row), occupancy with holes, 3-D, fp16 compute, bf16 storage."""
-    args, kw = _edge_nnps_tiles(cap + dim, dim, cap, storage)
-    args = tuple(a.to(cuda_device) for a in args)
+    tabs, kw = _edge_nnps_tiles(cap + dim, dim, cap, storage)
+    _, k5 = _nnps_calls(tabs, kw, compute, cuda_device)
     before = tnp.rcll_adjacency.launches
-    assert tnp.check_against_plain("K5", args, dict(kw, compute_dtype=compute))["hits"] > 0
+    assert tnp.check_against_plain("K5", *k5)["hits"] > 0
     assert tnp.rcll_adjacency.launches == before + 1
+
+
+#: Masks with holes for K3 and K4: (dim, cap, storage, compute) at cap 1,
+#: 3, 20, 37 (two slot groups) and 128 (four), 2-D and 3-D.
+HOLES_CASES = [
+    (2, 1, "fp16", torch.float32), (2, 3, "fp32", torch.float16),
+    (2, 20, "fp16", torch.float16), (2, 20, "bf16", torch.float32),
+    (2, 37, "fp32", torch.float32), (2, 128, "fp16", torch.float32),
+    (3, 1, "bf16", torch.float16), (3, 3, "fp16", torch.float32),
+    (3, 20, "fp32", torch.float16), (3, 37, "bf16", torch.float32),
+    (3, 128, "fp16", torch.float16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_slots", [1, 3, 48, 50])
+@pytest.mark.parametrize("dim,cap,storage,compute", HOLES_CASES)
+def test_neighbor_lists_kernel_holes_bit_identical(cuda_device, dim, cap, storage, compute,
+                                                   k_slots):
+    """K4 on masks with holes anywhere in a row: ids in (k, j) order, -1
+    padding and true counts, bit for bit. K = 1, 3 and 50, not multiples
+    of 4, take the stores of single ids (and, at odd caps, chunks of the
+    empty rows that cross rows); cap 37 and 128 have several occupancy
+    words a row."""
+    tabs, kw = _edge_nnps_tiles(7 * cap + dim, dim, cap, storage)
+    k4, _ = _nnps_calls(tabs, kw, compute, cuda_device, k_slots=k_slots)
+    before = tnp.rcll_neighbor_list_tables.launches
+    hits = tnp.check_against_plain("K4", *k4)["hits"]
+    assert tnp.rcll_neighbor_list_tables.launches == before + 1
+    assert hits > 0 or cap == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,cap,k_slots", [(2, 37, 400), (3, 20, 700), (2, 3, 5001)])
+def test_neighbor_lists_kernel_past_the_stage_bit_identical(cuda_device, dim, cap, k_slots):
+    """A K whose stage does not fit in a block's budget takes the unstaged
+    path: each thread writes its own row, ids then padding (at K = 5001
+    one by one, its rows not 16-byte aligned)."""
+    assert tnp.list_stride(k_slots) == 0
+    tabs, kw = _edge_nnps_tiles(cap + k_slots, dim, cap, "fp16")
+    k4, _ = _nnps_calls(tabs, kw, torch.float32, cuda_device, k_slots=k_slots)
+    assert tnp.check_against_plain("K4", *k4)["hits"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_slots", [1, 4, 9])
+def test_neighbor_lists_kernel_counts_past_k(cuda_device, k_slots):
+    """Counts past K stay the true counts; the lists hold the first K."""
+    tabs, kw = make_nnps_tiles(15, 2, 20000, "fp16")
+    k4, _ = _nnps_calls(tabs, kw, torch.float32, cuda_device, k_slots=k_slots)
+    _, counts = tnp.rcll_neighbor_list_tables(*k4[0], **k4[1])
+    assert int(counts.max()) > k_slots
+    tnp.check_against_plain("K4", *k4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,cap,storage,nnps_dtype", HOLES_CASES)
+def test_gradient_kernel_holes_within_rounding_bound(cuda_device, dim, cap, storage,
+                                                      nnps_dtype):
+    """K3 on masks with holes anywhere in a row: its work rows are the
+    occupied slots, its walk the neighbors' occupied slots."""
+    tabs, kw = _edge_nnps_tiles(5 * cap + dim, dim, cap, storage)
+    t = {k: x.to(cuda_device) for k, x in tabs.items()}
+    before = tsg.rcll_gradient.launches
+    tsg.check_against_plain((t["rel"], t["f"], t["occ"], t["nb_ids"]),
+                            dict(kw, nnps_dtype=nnps_dtype))
+    assert tsg.rcll_gradient.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -365,6 +440,83 @@ def test_gradient_check_fails_a_planted_fault(cuda_device, monkeypatch, fault):
     with pytest.raises(AssertionError, match="disagrees"):
         tsg.check_against_plain((t["rel"], t["f"], t["occ"], t["nb_ids"]),
                                 dict(kw, nnps_dtype=torch.float16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", tnp.FAULTS)
+def test_neighbor_lists_check_fails_a_planted_fault(cuda_device, monkeypatch, fault):
+    """K4's padding 0 for -1, and its counts saturated at K (shown at a
+    small K, where counts pass it)."""
+    tabs, kw = _edge_nnps_tiles(41, 2, 20, "fp16")
+    k4, _ = _nnps_calls(tabs, kw, torch.float32, cuda_device, k_slots=3)
+    monkeypatch.setattr(tnp, "kernel_params", tnp.planted_params(fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        tnp.check_against_plain("K4", *k4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", tsg.FAULTS)
+def test_gradient_check_fails_a_planted_walk_fault(cuda_device, monkeypatch, fault):
+    """K3's walk one occupied slot short, and a row's first empty slot
+    taken as its end (visible only on a mask with holes)."""
+    tabs, kw = _edge_nnps_tiles(42, 2, 20, "fp16")
+    t = {k: x.to(cuda_device) for k, x in tabs.items()}
+    monkeypatch.setattr(tsg, "walk_params", tsg.planted_params(fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        tsg.check_against_plain((t["rel"], t["f"], t["occ"], t["nb_ids"]),
+                                dict(kw, nnps_dtype=torch.float16))
+
+
+def _k3_k4_calls(dev):
+    """One K4 and one K3 call on the same mask with holes, as thunks."""
+    tabs, kw = _edge_nnps_tiles(43, 2, 37, "fp16")
+    k4, _ = _nnps_calls(tabs, kw, torch.float32, dev, k_slots=50)
+    t = {k: x.to(dev) for k, x in tabs.items()}
+    return (lambda: tnp.rcll_neighbor_list_tables(*k4[0], **k4[1]),
+            lambda: tsg.rcll_gradient(t["rel"], t["f"], t["occ"], t["nb_ids"], **kw,
+                                      nnps_dtype=torch.float16))
+
+
+def _bits(outs):
+    return [o.view(torch.int32) for o in outs]
+
+
+@pytest.mark.cuda
+def test_neighbor_lists_and_gradient_kernels_are_deterministic(cuda_device):
+    """Two launches on the same inputs give the same bits: every output
+    element is written once, by one thread, in a fixed order."""
+    for call in _k3_k4_calls(cuda_device):
+        first = _bits(call())
+        for _ in range(2):
+            assert all(torch.equal(a, b) for a, b in zip(first, _bits(call())))
+
+
+@pytest.mark.cuda
+def test_neighbor_lists_and_gradient_kernels_replay_in_a_cuda_graph(cuda_device):
+    """K4 and K3 captured in one CUDA graph (K3's two passes and its
+    scratch words included) replay to the eager launches' bits."""
+    calls = _k3_k4_calls(cuda_device)
+    eager = [_bits(call()) for call in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call in calls:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (tnp.rcll_neighbor_list_tables.launches, tsg.rcll_gradient.launches)
+    with torch.cuda.graph(graph):
+        captured = [call() for call in calls]
+    assert (tnp.rcll_neighbor_list_tables.launches, tsg.rcll_gradient.launches) == (
+        before[0] + 1, before[1] + 1)
+    for _ in range(2):
+        for outs in captured:
+            for o in outs:
+                o.fill_(float("nan") if o.is_floating_point() else 7)
+        graph.replay()
+        torch.cuda.synchronize()
+        for want, outs in zip(eager, captured):
+            assert all(torch.equal(a, b) for a, b in zip(want, _bits(outs)))
 
 
 # --------------------------------------------------------------------------

@@ -62,3 +62,31 @@ def test_gradient_plain_matches_jax(monkeypatch, n, dim, cap, nnps_dtype, interp
     g_j = jops.rcll_gradient_particles(dj, bj, st_j.rel, jnp.asarray(f),
                                        nnps_dtype=JDT[nnps_dtype], interpret=True)
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("cap,c1", [(1, 40), (3, 70), (20, 70), (37, 33), (128, 5)])
+def test_gradient_work_rows_are_the_occupied_slots(cap, c1):
+    """K3's work rows, by the kernel's arithmetic (popcount scan, search,
+    rank-th set bit), are exactly the occupied slots of a mask with holes
+    anywhere, in cell-major order; its occupancy words hold the mask."""
+    rng = np.random.default_rng(cap)
+    occ = torch.as_tensor((rng.random((c1, cap)) < 0.45).astype(np.float32))
+    occ[rng.integers(0, c1)] = 0.0  # an empty cell inside a block
+    occ[-1] = 0.0
+    words = tsg.occupancy_words(occ)
+    assert words.shape == (c1, -(-cap // 32))
+    for c in range(c1):
+        for s in range(cap):
+            assert bool((int(words[c, s // 32]) >> (s % 32)) & 1) == bool(occ[c, s] > 0)
+    want = [(c, s) for c in range(c1) for s in range(cap) if occ[c, s] > 0]
+    assert tsg.work_rows(occ) == want
+
+
+@pytest.mark.parametrize("fault", tsg.FAULTS)
+def test_gradient_planted_params_change_one_field(fault):
+    clean, planted = list(tsg.walk_params()), list(tsg.planted_params(fault)())
+    assert clean == [0, 0]
+    changed = [n for n, a, b in zip(tsg.FAULTS, clean, planted) if a != b]
+    assert changed == [fault]
+    with pytest.raises(ValueError):
+        tsg.planted_params("no_such_fault")

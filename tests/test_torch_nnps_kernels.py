@@ -136,6 +136,55 @@ def test_adjacency_regions_cover_every_element_once(c1, dim, cap):
     assert (seen == 1).all()
 
 
+@pytest.mark.parametrize("c1,cap,k_slots", [
+    (7, 20, 48), (5, 3, 50), (4, 1, 1), (6, 32, 3), (3, 33, 48), (3, 37, 50), (2, 128, 9),
+    (3, 20, 400), (50, 20, 48), (33, 3, 5), (17, 37, 50),
+])
+def test_list_regions_cover_every_element_once(c1, cap, k_slots):
+    """K4's launch geometry: the regions its blocks write partition the
+    flat (C+1)·cap·K output, each starts 16-byte aligned, and only the
+    last one may end in single elements (at most 3, one pass of its
+    threads)."""
+    seen = np.zeros(c1 * cap * k_slots, np.int64)
+    regions = list(tnp.list_regions(c1, cap, k_slots))
+    assert len(regions) == -(-c1 // tnp.LIST_CELLS)
+    for e0, length in regions:
+        assert e0 % 4 == 0  # 16-byte chunks from the region's start
+        assert length % (cap * k_slots) == 0  # whole cells
+        if length < tnp.LIST_CELLS * cap * k_slots:  # only the last block is short
+            assert e0 + length == c1 * cap * k_slots
+        else:
+            assert length % 4 == 0  # no single elements at its end
+        seen[e0:e0 + length] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("k_slots", [1, 3, 4, 8, 48, 50, 92, 93, 400, 5000])
+def test_list_stride_fits_the_stage(k_slots):
+    """A K4 stage row holds K hits, starts 8-byte aligned and on its own
+    bank group (an odd multiple of 4 hits), and the block's stage fits in
+    its budget; a K whose stage would not takes the unstaged path."""
+    stride = tnp.list_stride(k_slots)
+    if stride == 0:
+        assert 2 * tnp.LIST_THREADS * k_slots > tnp.LIST_STAGE_BYTES - 2 * 8 * tnp.LIST_THREADS
+        return
+    assert stride >= k_slots and stride % 4 == 0 and (stride // 4) % 2 == 1
+    assert stride - k_slots < 8
+    assert 2 * tnp.LIST_THREADS * stride <= tnp.LIST_STAGE_BYTES
+
+
+@pytest.mark.parametrize("fault", tnp.FAULTS)
+def test_neighbor_lists_planted_params_change_one_field(fault):
+    kw = dict(weights=(1.0, 0.5), r_cell=2.0, compute_dtype=torch.float32)
+    f0, i0 = tnp.kernel_params(**kw)
+    f1, i1 = tnp.planted_params(fault)(**kw)
+    assert list(f0) == list(f1) and list(i0) == [0, -1, 0]
+    changed = [n for n, a, b in zip(("keep_self", "pad", "count_at_k"), i0, i1) if a != b]
+    assert changed == [{"pad_zero": "pad", "count_at_k": "count_at_k"}[fault]]
+    with pytest.raises(ValueError):
+        tnp.planted_params("no_such_fault")
+
+
 @pytest.mark.parametrize("dim,periodic", [(2, True), (3, False)])
 def test_adjacency_fp16_compute_matches_eager_jax(dim, periodic):
     n, cap = (500, 16) if dim == 2 else (800, 32)
