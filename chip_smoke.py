@@ -2,6 +2,7 @@
 """Build and drive the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # all phases but the profile (6)
+    python3 chip_smoke.py --phases 1,10   # build + the list backends and absolute algos
     python3 chip_smoke.py --phases 1,9    # build + llama3.2-3b served (K6, K7)
     python3 chip_smoke.py --phases 1,9 --parent build/parent  # K7 beside an earlier tree's
     python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1, K3, K4, K5 beside it
@@ -68,6 +69,11 @@ Phases (each prints its own lines and raises on failure):
      phase 2's K6/K7 checks, phase 9's checks at
      captured inputs, phase 9's request check (over the prefill and 8
      decode steps) and its logit gates alone must each fail on each;
+     then phase 10's path, monkeypatched in this script: ``fused._pair_rhs``
+     without its dv (Morris) channel and ``nnps.rcll_neighbors_windows``
+     dropping each row's last valid slot; each phase-10 gate that runs the
+     faulted function on one side of its comparison must fail
+     (``P10_BLIND_TO`` names the others and why);
   8. the NNPS path at the paper's 1M scale: ``gradient_test_particles(
      ds=1/1024)`` (N = 1,048,576) through ``rcll.init_state``,
      ``cells.bin_by_cell_id`` and ``ops.rcll_neighbor_lists`` (K4),
@@ -95,7 +101,18 @@ Phases (each prints its own lines and raises on failure):
      the whole anchored request against the plain path, teacher-forced:
      every logit finite and within ``transformer.logit_tolerance``, the
      logits within ``LOGIT_NORMWISE_LIMIT`` normwise, and every K6 and K7
-     launch within its rounding bound of its plain version.
+     launch within its rounding bound of its plain version;
+ 10. the solver's other backends and algos, no kernel of their own: at N =
+     1,048,576 (taylor_green, ds = 1/1024) ``backend="reference"``,
+     ``"xla"`` and ``"kernel"`` from one state with fp32 records, xla and
+     kernel held to reference (``p10_backends_gate``), K1/K2 launched 0
+     times by the list backends and once a step by the kernel; xla with
+     fp16 records against fp32 records; steps/s of ``run_timed(50,
+     observe_every=10)``, peak device memory, the auto window and K of each
+     backend; the skinned dam break (~260k) on xla against kernel; approach
+     I (``algo="cell"``, fp32) against rcll on the kernel backend at the
+     Table 5 gate; ``algo="all"`` (fp32) against rcll on the reference
+     backend at ds = 1/256 (N = 65,536: the all-list search is O(N^2)).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -849,6 +866,7 @@ def phase7_planted_faults() -> None:
                 rcll_force.kernel_params = params
     missed += nnps_planted_faults()
     missed += lm_planted_faults()
+    missed += phase10_planted_faults()
     if missed:
         raise AssertionError(f"planted faults not caught: {missed}")
 
@@ -1762,6 +1780,442 @@ def lm_planted_faults() -> list:
     return missed
 
 
+# --------------------------------------------------------------------------
+# phase 10: the list backends and the absolute algos
+# --------------------------------------------------------------------------
+#: Phase 10's full-size case (N = 1,048,576) and step counts.
+P10_DS = 1.0 / 1024
+P10_STEPS = 10  # the three backends from one state, fp32 records
+P10_CELL_STEPS = 20  # approach I against rcll
+P10_ALL_STEPS = 100  # the all-list against rcll, as tests/test_solver.py runs it
+P10_ALL_DS = 1.0 / 256  # the all-list's O(N^2) search, cut to N = 65,536
+
+
+def _k12_zero() -> None:
+    wrapper("k1").launches = 0
+    wrapper("k2").launches = 0
+
+
+def _k12_read() -> tuple[int, int]:
+    torch.cuda.synchronize()
+    return wrapper("k1").launches, wrapper("k2").launches
+
+
+def _diffs(cfg_a, a, cfg_b, b, fluid_only: bool = False) -> dict:
+    """Max |difference| of positions, velocity and density of two final
+    states (over fluid particles when asked)."""
+    from repro_torch.core import solver
+
+    sel = ~a.fixed if fluid_only else torch.ones_like(a.fixed)
+    pairs = {"pos": (solver.positions(cfg_a, a), solver.positions(cfg_b, b)),
+             "v": (a.fluid.v, b.fluid.v), "rho": (a.fluid.rho, b.fluid.rho)}
+    return {k: float((x[sel] - y[sel]).abs().max()) for k, (x, y) in pairs.items()}
+
+
+def _run_carry(cfg, st, nsteps: int):
+    """``simulate_stats`` by its parts, keeping the carry (its health flags
+    and its last list) for the truncation gate; K1/K2 launches counted."""
+    from repro_torch.core import solver
+
+    _k12_zero()
+    carry = solver.run_persistent(cfg, solver.init_persistent(cfg, st), nsteps)
+    out = solver.finalize_persistent(cfg, carry)
+    return out, carry, _k12_read()
+
+
+def _ulp(x: float) -> float:
+    """One fp32 ulp at magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(x)) - 23) if x > 0 else 2.0**-149
+
+
+def xla_decode_dacc(cfg, st) -> float:
+    """A bound on what the xla sweep's fp32 cell-unit decode adds to a
+    particle's acceleration, max_i Σ_j |Δ pair term|, at the packed
+    initial state of a linear-EOS + Morris case.
+
+    ``fused`` decodes q = I + rel/2 in fp32, so each displacement
+    component is off by at most one ulp of the largest cell index times
+    the cell edge, |e| <= sqrt(d) · max_a ulp(ncells_a) · hc_a (the
+    reference decodes the integer cell delta exactly). With W' = dW/dr
+    and |W''| its pointwise second derivative: the pressure term A W'
+    disp/r changes by <= |A| (|W''| + 2|W'|/r) |e|, the Morris term B
+    W' r/(r^2 + 0.01h^2) dv by <= |B| |dv| (|W''|/r + |W'|/r^2) |e|.
+    """
+    from repro_torch.core import bspline, rcll, solver
+
+    c = dataclasses.replace(cfg, backend="reference")
+    sch = c.resolved_scheme
+    if sch.has_av_term or sch.has_delta_term or sch.eos != "linear":
+        raise ValueError("xla_decode_dacc covers the linear EOS + Morris scheme")
+    dom = c.domain
+    carry = solver.init_persistent(c, st)
+    nl = solver._in_range(carry.nl, carry.order.shape[0])
+    disp, r = rcll.pair_displacements(dom, carry.st.rc, nl)
+    idx = nl.idx.long()
+    fl = carry.st.fluid
+    mj = torch.where(nl.mask, fl.m[idx], 0.0)
+    inv = 1.0 / fl.rho
+    por2 = sch.por2_inv(inv).abs()
+    big_a = mj * (por2[:, None] + por2[idx])
+    big_b = mj * 2.0 * sch.mu * inv[:, None] * inv[idx]
+    dv = (fl.v[:, None, :] - fl.v[idx]).norm(dim=-1)
+    h = dom.h
+    rr = r / h
+    w2 = bspline.alpha_d(dom.dim, h) / h**2 * torch.where(
+        rr < 1.0, (3.0 * rr - 2.0).abs(), torch.where(rr < 2.0, 2.0 - rr, 0.0))
+    w1 = bspline.dw_dr(r, h, dom.dim).abs()
+    rs = r.clamp(min=1e-30)
+    e = math.sqrt(dom.dim) * max(_ulp(float(nc)) * hc
+                                 for nc, hc in zip(dom.ncells, dom.cell_sizes))
+    sens = big_a * (w2 + 2.0 * w1 / rs) + big_b * dv * (w2 / rs + w1 / rs**2)
+    return float((torch.where(nl.mask, sens, 0.0).sum(dim=-1) * e).max())
+
+
+def p10_backends_gate(nsteps: int = P10_STEPS) -> dict:
+    """``reference``, ``xla`` and ``kernel`` on taylor_green at N =
+    1,048,576 with fp32 records, from one state: xla and kernel held to
+    reference at tests/test_torch_solver.py's tolerances, positions and
+    density 1e-6 and velocity nsteps·dt·1e-5·|acc|max (1e-4 there, |acc|
+    <= 10; the larger of 10 and this state's |acc|max here), plus one
+    fp32 ulp of |v|max a step: at dt = 3.4e-6 a velocity's own rounding
+    (6e-8 at |v| < 1) exceeds the force term, which the CPU test's dt =
+    1.9e-3 never shows. xla's velocity also carries nsteps·dt times its
+    decode bound (:func:`xla_decode_dacc`): with ~426 cells an axis, its
+    fp32 q = I + rel/2 rounds at 3e-5 cell units. K1/K2 launched 0 times
+    by the list backends and once a step by the kernel backend; equal
+    rebuilds, no overflow, no window truncation."""
+    from repro_torch.core import cases, health, solver
+    from repro_torch.core.precision import FP32_RECORDS
+
+    cfg, st = cases.build_case("taylor_green", ds=P10_DS, policy=FP32_RECORDS).build()
+    runs = {}
+    for be in ("reference", "xla", "kernel"):
+        c = dataclasses.replace(cfg, backend=be)
+        t0 = time.perf_counter()
+        out, carry, launches = _run_carry(c, st, nsteps)
+        runs[be] = dict(cfg=c, out=out, rebuilds=carry.rebuilds, launches=launches,
+                        overflow=bool(carry.overflow),
+                        trunc=bool(int(carry.flags) & health.WINDOW_TRUNC),
+                        s=time.perf_counter() - t0)
+    ref = runs["reference"]
+    cr = ref["cfg"]
+    ck = runs["kernel"]["cfg"]  # K2 reads no list: |acc|max free of any list fault
+    acc_max = float(solver._force_rhs_kernel(ck, solver.init_persistent(ck, st))[1]
+                    .abs().max())
+    v_max = float(ref["out"].fluid.v.abs().max())
+    tol = {"pos": 1e-6, "rho": 1e-6,
+           "v": nsteps * (cfg.dt * 1e-5 * max(10.0, acc_max) + _ulp(v_max))}
+    decode = xla_decode_dacc(cfg, st)
+    log(f"[10] taylor_green ds=1/1024 fp32 records: dt {cfg.dt:.4e}, |acc|max {acc_max:.4g} "
+        f"at the start, |v|max {v_max:.6g} at the end, xla decode bound on |dacc| "
+        f"{decode:.4g}")
+    bad = []
+    for be, r in runs.items():
+        want = (nsteps, nsteps) if be == "kernel" else (0, 0)
+        t = dict(tol, v=tol["v"] + (nsteps * cfg.dt * decode if be == "xla" else 0.0))
+        d = {} if be == "reference" else _diffs(cr, ref["out"], r["cfg"], r["out"])
+        log(f"[10] {be}: N {st.xn.shape[0]}, {nsteps} steps in {r['s']:.2f} s, rebuilds "
+            f"{r['rebuilds']}, K1/K2 launches {r['launches']} (want {want}), overflow "
+            f"{r['overflow']}, window truncation {r['trunc']}"
+            + "".join(f", |d{k}| vs reference {v:.3e} (tol {t[k]:.3e})" for k, v in d.items()))
+        if (r["launches"] != want or r["overflow"] or r["trunc"]
+                or r["rebuilds"] != ref["rebuilds"] or any(d[k] > t[k] for k in d)):
+            bad.append(be)
+    if bad:
+        raise AssertionError(f"phase 10 backends gate failed for {bad}")
+    return runs
+
+
+def p10_records_gate(runs: dict, nsteps: int = P10_STEPS) -> None:
+    """``xla`` with fp16 records (the production layout) against ``xla``
+    with fp32 records (``runs["xla"]``), at tests/test_fused_force.py's
+    gate: velocity within 1e-6 + 1e-2 max|v|, positions within 1e-3 ds
+    plus one storage quantum of the fp16 relative coordinate a step
+    (hc/2 · 2^-11): the records' velocity quantization may flip the
+    rounding of a stored coordinate once a step, by one quantum; at
+    ds = 1/1024 a quantum is 0.56e-3 ds, against ~0.6e-3 ds at that
+    test's ds = 0.1, where 1e-3 ds allows one flip."""
+    from repro_torch.core import cases
+    from repro_torch.core.precision import PrecisionPolicy
+
+    cfg, st = cases.build_case("taylor_green", ds=P10_DS, backend="xla",
+                               policy=PrecisionPolicy()).build()
+    out, carry, launches = _run_carry(cfg, st, nsteps)
+    ref = runs["xla"]
+    d = _diffs(ref["cfg"], ref["out"], cfg, out)
+    quantum = max(cfg.domain.cell_sizes) / 2 * 2.0**-11
+    tol = {"pos": 1e-3 * cfg.ds + nsteps * quantum,
+           "v": 1e-6 + 1e-2 * float(ref["out"].fluid.v.abs().max())}
+    log(f"[10] xla fp16 records vs fp32 records, {nsteps} steps: |dpos| {d['pos']:.3e} "
+        f"(tol {tol['pos']:.3e}; 1e-3 ds {1e-3 * cfg.ds:.3e}, a quantum {quantum:.3e}), "
+        f"|dv| {d['v']:.3e} (tol {tol['v']:.3e}), |drho| {d['rho']:.3e}; K1/K2 launches "
+        f"{launches}, overflow {bool(carry.overflow)}")
+    if any(d[k] > tol[k] for k in tol) or launches != (0, 0) or bool(carry.overflow):
+        raise AssertionError("phase 10 records gate failed")
+
+
+def p10_timings() -> None:
+    """Steps/s of ``run_timed(50, observe_every=10)`` and peak device
+    memory for each backend at the production policy (fp16 records;
+    ``reference`` reads no records), beside the card's name and limit."""
+    from repro_torch.core.api import Simulation
+
+    card = gpu_line()
+    for be in ("reference", "xla", "kernel"):
+        sim = Simulation.from_case("taylor_green", ds=P10_DS, backend=be)
+        cfg = sim.cfg
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _k12_zero()
+        res, steps_per_s = sim.run_timed(50, observe_every=10)
+        launches = _k12_read()
+        peak = torch.cuda.max_memory_allocated()
+        want = (0, 0) if be != "kernel" else (2 * res.stats.steps,) * 2
+        window = cfg.resolved_window() if be != "kernel" else "none"
+        log(f"[10] {be} steps/s {steps_per_s:.3f} (run_timed(50, observe_every=10), "
+            f"records {cfg.policy.records}; {card}); peak device memory {peak} bytes "
+            f"({peak / 2**30:.2f} GiB); max_neighbors {cfg.max_neighbors}, auto window "
+            f"{window}; rebuilds {res.stats.rebuilds}, overflow {res.stats.overflow}; "
+            f"K1/K2 launches {launches} (want {want})")
+        if launches != want or res.stats.overflow:
+            raise AssertionError(f"phase 10 timed {be} run: launches or overflow")
+        if not bool(torch.isfinite(res.state.fluid.v).all()):
+            raise AssertionError(f"phase 10 timed {be} run: non-finite velocity")
+        p10_step_split(cfg, sim.state, be)
+
+
+def p10_step_split(cfg, st, label: str, nsteps: int = 3) -> None:
+    """Where a step of one backend goes: the rebuild and the physics step
+    host-timed with a synchronize after each, then one step under
+    ``torch.profiler`` (device time and the device's busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import solver
+
+    carry = solver.run_persistent(cfg, solver.init_persistent(cfg, st), 1)
+    torch.cuda.synchronize()
+    split = {"rebuild": 0.0, "physics": 0.0}
+    for _ in range(nsteps):
+        t0 = time.perf_counter()
+        carry = solver._rebuild(cfg, carry)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        carry = solver._physics_step(cfg, carry)
+        torch.cuda.synchronize()
+        split["rebuild"] += t1 - t0
+        split["physics"] += time.perf_counter() - t1
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry = solver.step_persistent(cfg, carry)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    device_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events if e.self_device_time_total > 0)
+    log(f"[10] {label} step split (ms, synchronized): " + ", ".join(
+        f"{k} {1e3 * v / nsteps:.3f}" for k, v in split.items())
+        + f"; one profiled step: wall {1e3 * wall:.3f} ms, device time {device_us / 1e3:.3f} ms "
+        f"in {launches} kernel launches, busy share {device_us / 1e6 / wall:.3f}")
+
+
+#: Phase 10's dam-break velocity limit (xla against kernel), from readings
+#: on an H100 (PERF.md §6): 4.4e-6 over its 60 steps; with each row's
+#: last valid list slot dropped 2.6e-2, while positions then move by only
+#: 1.5e-5, inside the 1e-4 position gate.
+DAM_BREAK_DV_LIMIT = 1e-4
+
+
+def p10_dam_break_gate() -> None:
+    """The skinned dam break of phase 4 (~260k particles, fp32 records,
+    K = 64 as in tests/test_torch_solver.py) on ``xla`` against
+    ``kernel``: equal rebuild counts, at least 2 in-run rebuilds,
+    positions within 1e-4 (that test's gate), velocity within
+    :data:`DAM_BREAK_DV_LIMIT`, no overflow."""
+    from repro_torch.core import cases, solver
+    from repro_torch.core.precision import FP32_RECORDS
+
+    ds = cases.resolve_ds("dam_break", 250_000)
+    radius = 2.0 * cases.build_case("dam_break", ds=ds).h
+    cfg, st = cases.build_case("dam_break", ds=ds, cell_factor=1.5, skin=0.25 * radius,
+                               v0=1.0, max_neighbors=64, policy=FP32_RECORDS,
+                               backend="xla").build()
+    _k12_zero()
+    t0 = time.perf_counter()
+    carry = solver.init_persistent(cfg, st)
+    steps = 0
+    while steps < 400 and carry.rebuilds < 3:
+        carry = solver.run_persistent(cfg, carry, 10)
+        steps += 10
+    out_x = solver.finalize_persistent(cfg, carry)
+    lx = _k12_read()
+    wall_x = time.perf_counter() - t0
+    ck = dataclasses.replace(cfg, backend="kernel")
+    t0 = time.perf_counter()
+    out_k, stats_k = solver.simulate_stats(ck, st, steps)
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    d = _diffs(cfg, out_x, ck, out_k)
+    log(f"[10] dam_break N {st.xn.shape[0]}, {steps} steps: xla {wall_x:.2f} s, rebuilds "
+        f"{carry.rebuilds}, overflow {bool(carry.overflow)}, K1/K2 launches {lx}; kernel "
+        f"{wall_k:.2f} s, rebuilds {stats_k.rebuilds}; |dpos| {d['pos']:.3e} (tol 1e-4), "
+        f"|dv| {d['v']:.3e} (limit {DAM_BREAK_DV_LIMIT:g}), |drho| {d['rho']:.3e}")
+    if (carry.rebuilds != stats_k.rebuilds or carry.rebuilds - 1 < 2 or d["pos"] > 1e-4
+            or d["v"] > DAM_BREAK_DV_LIMIT
+            or bool(carry.overflow) or stats_k.overflow or lx != (0, 0)):
+        raise AssertionError("phase 10 dam break gate failed")
+
+
+def _table5_gate(label: str, cfg_a, out_a, cfg_b, out_b, ds: float) -> dict:
+    """tests/test_solver.py's Table 5 gate over fluid particles: positions
+    within 0.2 ds, velocity within 0.05 max|v_a| + 1e-4."""
+    d = _diffs(cfg_a, out_a, cfg_b, out_b, fluid_only=True)
+    vmax = float(out_a.fluid.v[~out_a.fixed].abs().max())
+    tol = {"pos": 0.2 * ds, "v": 0.05 * vmax + 1e-4}
+    log(f"[10] {label}: |dpos| {d['pos']:.3e} (tol {tol['pos']:.3e}), |dv| {d['v']:.3e} "
+        f"(tol {tol['v']:.3e}), |drho| {d['rho']:.3e}")
+    if any(d[k] > tol[k] for k in tol):
+        raise AssertionError(f"phase 10 gate failed: {label}")
+    return d
+
+
+def p10_cell_gate(nsteps: int = P10_CELL_STEPS) -> None:
+    """Approach I (``algo="cell"``, fp32 search and coordinates) at N =
+    1,048,576 against ``rcll`` on the kernel backend (approach III, the
+    default policy), at the Table 5 gate; K1/K2 launched 0 times by the
+    absolute run."""
+    from repro_torch.core import cases, solver
+    from repro_torch.core.precision import PrecisionPolicy
+
+    cfg1, st1 = cases.build_case("taylor_green", ds=P10_DS, algo="cell",
+                                 policy=PrecisionPolicy(nnps="fp32", coords="fp32")).build()
+    _k12_zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out1, stats1 = solver.simulate_stats(cfg1, st1, nsteps)
+    l1 = _k12_read()
+    s1 = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    cfg3, st3 = cases.build_case("taylor_green", ds=P10_DS).build()
+    out3 = solver.simulate(cfg3, st3, nsteps)
+    log(f"[10] cell (approach I) N {st1.xn.shape[0]}, {nsteps} steps in {s1:.2f} s "
+        f"({nsteps / s1:.3f} steps/s, {gpu_line()}), peak device memory {peak} bytes, "
+        f"cap {cfg1.cap(st1.xn.shape[0])}, K {cfg1.max_neighbors}; K1/K2 launches {l1}")
+    if l1 != (0, 0) or not bool(torch.isfinite(out1.fluid.v).all()):
+        raise AssertionError("phase 10 cell run: launches or non-finite velocity")
+    _table5_gate("cell (I) vs rcll kernel (III), Table 5 gate", cfg1, out1, cfg3, out3,
+                 cfg1.ds)
+
+
+def p10_all_gate(nsteps: int = P10_ALL_STEPS) -> None:
+    """``algo="all"`` at fp32 against ``rcll`` on the reference backend at
+    fp32, at tests/test_solver.py's 5e-5 on positions, on taylor_green
+    cut to ds = 1/256 (N = 65,536): the all-list search is O(N^2), ~1.1e12
+    pair tests a step at N = 1,048,576."""
+    from repro_torch.core import cases, solver
+    from repro_torch.core.precision import PrecisionPolicy
+
+    pol = PrecisionPolicy(nnps="fp32", coords="fp32")
+    cfga, sta = cases.build_case("taylor_green", ds=P10_ALL_DS, algo="all", policy=pol).build()
+    cfgr, str_ = cases.build_case("taylor_green", ds=P10_ALL_DS, backend="reference",
+                                  policy=pol).build()
+    _k12_zero()
+    t0 = time.perf_counter()
+    outa = solver.simulate(cfga, sta, nsteps)
+    la = _k12_read()
+    sa = time.perf_counter() - t0
+    outr = solver.simulate(cfgr, str_, nsteps)
+    d = _diffs(cfga, outa, cfgr, outr)
+    log(f"[10] all N {sta.xn.shape[0]}, {nsteps} steps in {sa:.2f} s ({nsteps / sa:.3f} "
+        f"steps/s, {gpu_line()}); vs rcll reference: |dpos| {d['pos']:.3e} (tol 5e-5), "
+        f"|dv| {d['v']:.3e}, |drho| {d['rho']:.3e}; K1/K2 launches {la}")
+    if d["pos"] > 5e-5 or la != (0, 0):
+        raise AssertionError("phase 10 all-list gate failed")
+
+
+def phase10_backends() -> None:
+    """Run every gate of phase 10 (each prints its readings), then fail
+    if any failed."""
+    failed = []
+
+    def gate(name, fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as e:
+            log(f"[10] {name} FAILED: {e}")
+            failed.append(name)
+
+    runs = gate("backends gate", p10_backends_gate)
+    if runs is not None:
+        gate("records gate", p10_records_gate, runs)
+    del runs
+    gate("timings", p10_timings)
+    gate("dam break gate", p10_dam_break_gate)
+    gate("cell gate", p10_cell_gate)
+    gate("all-list gate", p10_all_gate)
+    if failed:
+        raise AssertionError(f"phase 10 failed: {failed}")
+
+
+def _no_dv_channel(orig):
+    def faulty(domain, *args, scheme):
+        return orig(domain, *args, scheme=dataclasses.replace(scheme, viscosity="none"))
+    return faulty
+
+
+def _drop_last_valid_slot(orig):
+    def faulty(*args, **kw):
+        nl = orig(*args, **kw)
+        n = nl.count.shape[0]
+        last = nl.mask.sum(dim=1, keepdim=True) - 1
+        hit = torch.arange(nl.idx.shape[1], device=nl.idx.device)[None, :] == last
+        return nl._replace(idx=torch.where(hit, n, nl.idx), mask=nl.mask & ~hit)
+    return faulty
+
+
+#: Phase 10's gates that cannot see a fault, with the reason.
+P10_BLIND_TO = {
+    ("fused:no_dv_channel", "records gate"): "both of its runs are xla, faulted alike",
+    ("fused:no_dv_channel", "dam break gate"): "dam_break's scheme has no Morris term",
+    ("fused:no_dv_channel", "cell gate"): "neither run calls fused._pair_rhs",
+    ("fused:no_dv_channel", "all-list gate"): "neither run calls fused._pair_rhs",
+    ("nnps:drop_last_slot", "records gate"): "both of its runs are xla, faulted alike",
+    ("nnps:drop_last_slot", "cell gate"): "neither run calls the window search",
+}
+
+
+def phase10_planted_faults() -> list:
+    """Faults planted by monkeypatching phase 10's path (this script only):
+    ``fused._pair_rhs`` without its dv (Morris) channel, and
+    ``nnps.rcll_neighbors_windows`` dropping each row's last valid slot.
+    Each gate of phase 10 that runs the faulted function on one side of
+    its comparison must fail; :data:`P10_BLIND_TO` names the rest.
+    Returns the (fault, gate) pairs that passed where they must fail."""
+    from repro_torch.core import fused, nnps
+
+    gates = (("backends gate", p10_backends_gate), ("records gate", None),  # blind
+             ("dam break gate", p10_dam_break_gate),
+             ("cell gate", p10_cell_gate), ("all-list gate", p10_all_gate))
+    faults = (("fused:no_dv_channel", fused, "_pair_rhs", _no_dv_channel),
+              ("nnps:drop_last_slot", nnps, "rcll_neighbors_windows", _drop_last_valid_slot))
+    missed = []
+    for fault, mod, attr, plant in faults:
+        for name, gate in gates:
+            if (fault, name) in P10_BLIND_TO:
+                log(f"[7] {fault}: {name} not run: {P10_BLIND_TO[(fault, name)]}")
+                continue
+            orig = getattr(mod, attr)
+            setattr(mod, attr, plant(orig))
+            try:
+                gate()
+                missed.append((fault, name))
+                log(f"[7] {fault}: {name} PASSED: the fault was not caught")
+            except AssertionError as e:
+                log(f"[7] {fault}: {name} failed, as it must: {e}")
+            finally:
+                setattr(mod, attr, orig)
+    return missed
+
+
 def phase6_profile(nsteps: int = 10) -> None:
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
@@ -1815,7 +2269,7 @@ def phase6_profile(nsteps: int = 10) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10",
                     help="comma-separated phases to run (default: all but 6)")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of an earlier tree whose K1, K3-K5 and K7 phases 3, 8 "
@@ -1847,6 +2301,8 @@ def main() -> int:
         phase8_nnps_path(results, args.parent)
     if 9 in phases:
         phase9_serving(results, args.parent)
+    if 10 in phases:
+        phase10_backends()
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
     if 1 not in phases:
         log(gpu_line())

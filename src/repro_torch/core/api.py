@@ -69,7 +69,9 @@ class Simulation:
         ``observe_every=0`` disables sampling (exactly
         ``solver.simulate_stats``). Otherwise the run takes ``nsteps``
         rounded DOWN to a whole number of sample blocks (at least one).
-        ``guard`` (the health guard) is not ported yet.
+        Every ``cfg.algo`` runs: the persistent RCLL pipeline, or the
+        absolute-coordinate stepper for "all" and "cell". ``guard`` (the
+        health guard) is not ported yet.
         """
         if guard:
             raise NotImplementedError(
@@ -83,15 +85,24 @@ class Simulation:
             return SimResult(out, stats, None)
         every = min(observe_every, nsteps)
         nblocks = max(1, nsteps // every)
-        carry = solver.init_persistent(cfg, self.state)
         rows = []
-        for _ in range(nblocks):
-            carry = solver.run_persistent(cfg, carry, every)
-            rows.append(observe_state(cfg, carry.st))
+        if cfg.algo == "rcll":
+            carry = solver.init_persistent(cfg, self.state)
+            for _ in range(nblocks):
+                carry = solver.run_persistent(cfg, carry, every)
+                rows.append(observe_state(cfg, carry.st))
+            stats = solver.SimStats(rebuilds=carry.rebuilds, steps=carry.steps,
+                                    overflow=bool(carry.overflow))
+            out = solver.finalize_persistent(cfg, carry)
+        else:
+            out = self.state
+            for _ in range(nblocks):
+                for _ in range(every):
+                    out = solver._step_absolute(cfg, out)
+                rows.append(observe_state(cfg, out))
+            n = nblocks * every
+            stats = solver.SimStats(rebuilds=n, steps=n, overflow=False)
         obs = Observables(*(torch.stack(col) for col in zip(*rows)))
-        stats = solver.SimStats(rebuilds=carry.rebuilds, steps=carry.steps,
-                                overflow=bool(carry.overflow))
-        out = solver.finalize_persistent(cfg, carry)
         self.state = out
         return SimResult(out, stats, obs)
 

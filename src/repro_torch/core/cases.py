@@ -12,10 +12,7 @@ spacing.
 Shipped cases: ``poiseuille`` (2-D channel, periodic x, dummy walls),
 ``dam_break`` (collapsing column, Tait EOS + artificial viscosity +
 delta-SPH), ``cavity`` (moving lid via ``v_wall``), ``taylor_green``
-(fully periodic, analytic viscous decay). The JAX Poiseuille case's
-``force_chunk`` knob belongs to the fused XLA sweep and its
-``max_neighbors`` to the neighbor-list backends (ROADMAP Queue 1 item 5);
-neither is ported with the kernel backend.
+(fully periodic, analytic viscous decay).
 
 Poiseuille analytic transient (series) solution:
 
@@ -105,13 +102,15 @@ class PoiseuilleCase:
     n_wall: int = 3  # dummy-particle wall layers per side
     algo: str = "rcll"
     policy: PrecisionPolicy = PrecisionPolicy()
+    max_neighbors: int = 40
     cfl: float = 0.125
     # Persistent-pipeline knobs: a Verlet skin needs cells that cover the
     # inflated radius, so cell_factor must be >= (r + skin) / r.
     skin: float = 0.0
     cell_factor: float = 1.0
     rebuild_every: int | None = None
-    backend: str | None = None  # None -> "kernel"
+    backend: str | None = None  # None -> "kernel" | "reference" | "xla"
+    force_chunk: int = 0
     check_overflow: bool = False
 
     # --- CLI / gallery metadata ---
@@ -181,11 +180,13 @@ class PoiseuilleCase:
             c0=self.c0,
             mu=self.rho0 * self.nu,
             body_force=(self.F, 0.0),
+            max_neighbors=self.max_neighbors,
             algo=self.algo,
             policy=self.policy,
             skin=self.skin,
             rebuild_every=self.rebuild_every,
             backend=self.backend,
+            force_chunk=self.force_chunk,
             check_overflow=self.check_overflow,
         )
         state = solver_lib.init_state(
@@ -261,6 +262,7 @@ class DamBreakCase:
     n_wall: int = 3
     algo: str = "rcll"
     policy: PrecisionPolicy = PrecisionPolicy()
+    max_neighbors: int = 48
     backend: str | None = None
     check_overflow: bool = False
     # Verlet-skin reuse knobs (the --dynamic benchmark's amortized-
@@ -363,6 +365,7 @@ class DamBreakCase:
             c0=self.c0,
             mu=0.0,
             body_force=(0.0, -self.g),
+            max_neighbors=self.max_neighbors,
             # capacity: the default robust rule (cells.robust_capacity)
             # already covers the DENSE column in the mostly-empty tank —
             # no per-case override to forget.
@@ -416,6 +419,7 @@ class LidCavityCase:
     n_wall: int = 3
     algo: str = "rcll"
     policy: PrecisionPolicy = PrecisionPolicy()
+    max_neighbors: int = 48
     backend: str | None = None
     check_overflow: bool = False
 
@@ -491,6 +495,7 @@ class LidCavityCase:
             c0=self.c0,
             mu=self.rho0 * self.nu,
             body_force=(0.0, 0.0),
+            max_neighbors=self.max_neighbors,
             algo=self.algo,
             policy=self.policy,
             backend=self.backend,
@@ -532,6 +537,7 @@ class TaylorGreenCase:
     rho0: float = 1.0
     algo: str = "rcll"
     policy: PrecisionPolicy = PrecisionPolicy()
+    max_neighbors: int = 48
     backend: str | None = None
     check_overflow: bool = False
 
@@ -597,6 +603,7 @@ class TaylorGreenCase:
             c0=self.c0,
             mu=self.rho0 * self.nu,
             body_force=(0.0, 0.0),
+            max_neighbors=self.max_neighbors,
             algo=self.algo,
             policy=self.policy,
             backend=self.backend,

@@ -16,6 +16,9 @@ CFL = 1 << 4  # vmax * dt / h beyond the advective CFL bound
 WINDOW_TRUNC = 1 << 5  # neighbor list truncated (window or K budget)
 CELL_OVERFLOW = 1 << 6  # cell table dropped particles (capacity)
 
+# The capacity bits, reported by the strict overflow check.
+CAPACITY_CHECKS = WINDOW_TRUNC | CELL_OVERFLOW
+
 
 class SimulationDiverged(RuntimeError):
     """A run failed a strict check (``SPHConfig.check_overflow``).

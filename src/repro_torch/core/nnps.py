@@ -1,7 +1,6 @@
 """Nearest-neighbor particle search (NNPS): all-list, cell-list and RCLL.
 
-Port of ``repro.core.nnps`` without the merged-window search (ROADMAP
-Queue 1 item 5). Three searches, as in the paper:
+Port of ``repro.core.nnps``. Three searches, as in the paper:
 
   * ``all_list_*``  - O(N^2) brute force, any dtype;
   * ``cell_list_*`` - background-cell candidates and *absolute*
@@ -9,7 +8,11 @@ Queue 1 item 5). Three searches, as in the paper:
                       paper's approach II when the dtype is fp16);
   * ``rcll_*``      - background-cell candidates and *cell-relative*
                       coordinates stored in the search dtype (approach
-                      III, the paper's contribution).
+                      III, the paper's contribution), over a dense
+                      (C, cap) cell table or, on cell-sorted arrays,
+                      table-free over merged index windows
+                      (:func:`rcll_neighbors_windows`, the production
+                      rebuild search of the list backends).
 
 Coordinates are stored in ``dtype`` and differences and squares are
 computed in it; each elementwise op rounds to it, as eager JAX does. A
@@ -46,7 +49,10 @@ class NeighborList(NamedTuple):
     idx:   (N, K) int32 neighbor particle ids (garbage where ~mask).
     mask:  (N, K) bool valid-slot flags.
     count: (N,) int32 true neighbor count (may exceed K -> overflow).
-    trunc: () bool, window searches only (not ported); None here.
+    trunc: () bool, window searches only: some particle's merged
+           candidate total exceeded the window budget (its true count is
+           then unknown; the ``k + 1`` count sentinel folds it into
+           ``overflowed``). None for searches without a window budget.
     """
 
     idx: torch.Tensor
@@ -244,6 +250,203 @@ def rcll_neighbors(domain: Domain, rel: torch.Tensor, cell_xy: torch.Tensor, *,
         ok = ok & (cand != torch.arange(n, dtype=torch.int32, device=dev)[:, None])
     idx, mask = select_k(cand, ok, k)
     return NeighborList(idx, mask, ok.sum(dim=1).to(torch.int32))
+
+
+#: Rows per chunk of the window search: each chunk's (chunk, window)
+#: candidate intermediates are evaluated at once instead of (N, window)
+#: slabs.
+SEARCH_CHUNK = 4096
+
+
+def auto_window(domain: Domain, ds: float | None = None, capacity: int | None = None,
+                safety: float = 1.25) -> int:
+    """Static merged-candidate budget for :func:`rcll_neighbors_windows`.
+
+    With the particle spacing ``ds``: the lattice count of a 3^dim-cell
+    block, prod_a (3 hc_a / ds + 1), times ``safety`` (independent of how
+    much of the domain the fluid fills). Without it: ceil(4/3 ·
+    3^(dim-1)) · capacity. Truncation is always flagged (the ``k + 1``
+    count sentinel), so an underestimate surfaces as overflow.
+    """
+    if ds is not None:
+        est = 1.0
+        for c in domain.cell_sizes:
+            est *= 3.0 * c / ds + 1.0
+        return max(8, int(np.ceil(safety * est)))
+    if capacity is None:
+        raise ValueError("auto_window needs ds or capacity")
+    return max(8, int(np.ceil(4 / 3 * 3 ** (domain.dim - 1))) * capacity)
+
+
+def _bits_dtype(dtype):
+    """Signed integer carrier of a storage dtype's bit width (int16 /
+    int32): the port's stand-in for JAX's u16 / u32 search row, read
+    back through ``.view()`` and, for a 16-bit cell coordinate, ``& 0xFFFF``."""
+    size = dtype.itemsize
+    if size == 2:
+        return torch.int16
+    if size == 4:
+        return torch.int32
+    raise ValueError(f"unsupported search storage dtype {dtype}")
+
+
+def rcll_neighbors_windows(domain: Domain, rel: torch.Tensor, cell_xy: torch.Tensor,
+                           counts: torch.Tensor, *, dtype=NNPS_STORE, compute_dtype=None,
+                           k: int, window: int, radius_cell: float | None = None,
+                           include_self: bool = False, chunk: int = 0) -> NeighborList:
+    """Table-free RCLL search over cell-SORTED particle arrays.
+
+    rel, cell_xy: (N, d) cell-sorted state; counts: (C,) per-cell
+    occupancy of the sorted arrays. Packed ids are contiguous per cell
+    (and row-major cell order makes runs of last-axis-adjacent cells
+    contiguous), so a particle's candidates are 3^(d-1) contiguous id
+    ranges (3^d single cells when the last axis is periodic, where the
+    seam breaks contiguity). The ranges are merged into one front-packed
+    block of ``window`` slots: slot t maps to run r(t) and candidate id
+    ``begin_r + t - B_r`` (B_r the exclusive prefix of run lengths), so
+    no (C, cap) table and no candidate-id gather exists.
+
+    Each candidate costs one gather of a bit-packed search row [rel bits
+    (d) | last-axis cell (banded runs)]; lead-axis cell deltas are
+    per-run constants. Eq. (7) runs in ``compute_dtype`` in the same
+    order as :func:`rcll_r2_cell_units`, per axis accumulated op by op.
+    Valid candidates are compacted by an ascending sort of ids keyed to
+    the dummy id N where invalid, so ``idx`` is ascending and DUMMY-PADDED
+    (invalid slots hold N). A particle whose neighborhood holds more
+    than ``window`` candidates gets the ``k + 1`` count sentinel and sets
+    ``trunc``.
+
+    Rows are independent, so the chunks (``chunk`` rows, ``SEARCH_CHUNK``
+    when 0, equalized as the JAX package equalizes them) run as a Python
+    loop and the last one is left short rather than padded: the result
+    is the same at every chunking.
+    """
+    n, dim = rel.shape
+    dev = rel.device
+    cdt = compute_dtype or dtype
+    starts = cells_lib.exclusive_cumsum(counts).long()
+    counts_l = counts.long()
+    nc = domain.ncells
+    ncy = nc[-1]
+    if radius_cell is None:
+        radius_cell = rcll_radius_cell_units(domain)
+    rcell = const(radius_cell, cdt, dev)
+    r2 = rcell * rcell
+    w = np.asarray(domain.cell_weights)
+
+    # Runs: contiguous 3-cell bands on an aperiodic last axis, single
+    # cells otherwise (every axis' delta then known per run).
+    banded = not domain.periodic[-1]
+    if banded:
+        offs = (cells_lib.neighbor_cell_offsets(dim - 1)
+                if dim > 1 else np.zeros((1, 0), np.int32))
+    else:
+        offs = cells_lib.neighbor_cell_offsets(dim)
+    nrun = offs.shape[0]
+    naxes = offs.shape[1]  # axes with a statically known delta
+    per = torch.tensor(domain.periodic[:naxes], dtype=torch.bool, device=dev)
+    n_ax = torch.tensor(nc[:naxes], dtype=torch.int32, device=dev)
+    cy = cell_xy[:, -1]
+
+    begins, lengths = [], []
+    for off in offs:
+        if naxes:
+            nb = cell_xy[:, :naxes] + torch.as_tensor(off, dtype=torch.int32, device=dev)
+            wrapped = torch.where(per, torch.remainder(nb, n_ax), nb)
+            valid = torch.all((wrapped >= 0) & (wrapped < n_ax), dim=-1)
+            nb = torch.clamp(wrapped, min=torch.zeros_like(n_ax), max=n_ax - 1)
+            flat = nb[..., 0]
+            for a in range(1, naxes):
+                flat = flat * nc[a] + nb[..., a]
+        else:
+            valid = torch.ones((n,), dtype=torch.bool, device=dev)
+            flat = torch.zeros_like(cy)
+        if banded:
+            ylo = torch.clamp(cy - 1, 0, ncy - 1)
+            yhi = torch.clamp(cy + 1, 0, ncy - 1)
+            c_lo = flat * ncy + ylo if dim > 1 else ylo
+            c_hi = flat * ncy + yhi if dim > 1 else yhi
+        else:
+            c_lo = c_hi = flat
+        begin = starts[c_lo.long()]
+        end = starts[c_hi.long()] + counts_l[c_hi.long()]
+        begins.append(begin.to(torch.int32))
+        lengths.append(torch.where(valid, end - begin, 0).to(torch.int32))
+    begin = torch.stack(begins, dim=1)  # (N, R)
+    # Exclusive prefix of run lengths: bounds[:, r] = merged-slot base of run r.
+    bounds = torch.cat([torch.zeros((n, 1), dtype=torch.int32, device=dev),
+                        torch.cumsum(torch.stack(lengths, dim=1), dim=1).to(torch.int32)],
+                       dim=1)  # (N, R + 1)
+    total = bounds[:, -1]
+
+    # Statically known per-run deltas I - J = -off (exact min image: a
+    # periodic axis has >= 3 cells).
+    dlt = torch.as_tensor(-offs.astype(np.float32), device=dev)  # (R, naxes)
+    dlt_c = [dlt[:, a].to(cdt) for a in range(naxes)]
+
+    # Bit-packed search row [rel bits (d) | last-axis cell (banded)].
+    bits = _bits_dtype(dtype)
+    rel_lo = rel.to(dtype)
+    cols = [rel_lo.view(bits)]
+    if banded:
+        limit = 2**16 - 1 if bits == torch.int16 else 2**32 - 1
+        if ncy >= limit:
+            raise ValueError(
+                f"last axis has {ncy} cells; the packed search row caps it at {limit}")
+        cy_bits = torch.where(cy > 32767, cy - 65536, cy) if bits == torch.int16 else cy
+        cols.append(cy_bits.to(bits)[:, None])
+    srow = torch.cat(cols, dim=1)
+    half = const(0.5, cdt, dev)
+    wc = [const(float(w[a]), cdt, dev) for a in range(dim)]
+    t = torch.arange(window, dtype=torch.int32, device=dev)[None, :]  # (1, S)
+
+    def body(lo, hi):
+        b, bb, tot = begin[lo:hi], bounds[lo:hi], total[lo:hi]
+        ri, cyi = rel_lo[lo:hi], cy[lo:hi]
+        c = hi - lo
+        # Source run of merged slot t: r = #(runs whose base <= t).
+        rsel = torch.zeros((c, window), dtype=torch.int32, device=dev)
+        for r in range(1, nrun):
+            rsel = rsel + (t >= bb[:, r:r + 1]).to(torch.int32)
+        rl = rsel.long()
+        ids = torch.gather(b, 1, rl) + t - torch.gather(bb[:, :nrun], 1, rl)
+        okw = t < tot[:, None]
+        idsc = torch.clamp(ids, 0, n - 1)
+        sj = srow[idsc.long()]  # ONE row gather: (c, S, d [+1])
+        rjc = sj[..., :dim].view(dtype).to(cdt)
+        ric = ri.to(cdt)
+        d2 = torch.zeros((c, window), dtype=cdt, device=dev)
+        for a in range(naxes):  # per-run constant deltas
+            du = (ric[:, a:a + 1] - rjc[..., a]) * half + dlt_c[a][rl]
+            du = du * wc[a]
+            d2 = d2 + du * du
+        if banded:  # last axis: exact integer cell delta, gathered
+            cyj = sj[..., dim].to(torch.int32)
+            if bits == torch.int16:
+                cyj = cyj & 0xFFFF
+            dy = (cyi[:, None] - cyj).to(cdt)
+            du = (ric[:, dim - 1:dim] - rjc[..., dim - 1]) * half + dy
+            du = du * wc[dim - 1]
+            d2 = d2 + du * du
+        ok = okw & (d2 <= r2)
+        if not include_self:
+            rows = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+            ok = ok & (idsc != rows[:, None])
+        count = ok.sum(dim=1).to(torch.int32)
+        count = torch.where(tot > window, torch.clamp(count, min=k + 1), count)
+        # Keyed-sort compaction: ascending ids first, dummy id N padding.
+        key = torch.sort(torch.where(ok, idsc, n), dim=1).values
+        if window < k:
+            key = torch.nn.functional.pad(key, (0, k - window), value=n)
+        idx = key[:, :k]
+        return idx, idx < n, count, tot > window
+
+    chunk = chunk if chunk > 0 else SEARCH_CHUNK
+    nchunk = -(-n // max(1, min(n, chunk)))
+    csize = max(1, -(-n // nchunk))
+    parts = [body(lo, min(n, lo + csize)) for lo in range(0, n, csize)]
+    idx, mask, count, trow = (torch.cat(p) for p in zip(*parts))
+    return NeighborList(idx, mask, count, trunc=torch.any(trow))
 
 
 def refilter(nl: NeighborList, d2: torch.Tensor, r2) -> NeighborList:

@@ -5,7 +5,10 @@ int32 plus ``rel`` (N, d) in the storage dtype (fp16). Eq. (8): rel +=
 2·dx/h_c accumulated in fp32, then migrate: shift the cell by
 floor((rel + 1)/2) and re-center rel. Eq. (7) decodes a pair's physical
 displacement from the two relative coordinates and the exact integer
-cell delta (:func:`decode_pair_disp`).
+cell delta (:func:`decode_pair_disp`). :func:`advance_ef` is Eq. (8)
+with the storage rounding carried forward (error feedback), and
+:func:`packed_neighbors` the table-free window search on the packed
+state.
 """
 from __future__ import annotations
 
@@ -69,6 +72,30 @@ def advance(domain: Domain, state: RCLLState, dxn: torch.Tensor, *,
     return RCLLState(cell_xy=cell_xy, rel=rel)
 
 
+def advance_ef(domain: Domain, state: RCLLState, dxn: torch.Tensor,
+               carry: torch.Tensor, *, dtype=NNPS_STORE) -> tuple[RCLLState, torch.Tensor]:
+    """Eq. (8) with error feedback: the fp32 rounding error of storing rel
+    at ``dtype`` is carried (``carry`` (N, d) fp32, zeros at t = 0) and
+    re-added next step, so the quantization is unbiased and positions
+    track the exact trajectory to fp32 accuracy. Returns (state, carry)."""
+    dev = dxn.device
+    rel_hi = state.rel.to(torch.float32) + carry
+    hc = torch.tensor(domain.hc_norm_axes, dtype=torch.float32, device=dev)
+    rel_hi = rel_hi + 2.0 * dxn.to(torch.float32) / hc
+    shift = torch.floor((rel_hi + 1.0) * 0.5).to(torch.int32)
+    rel_new = rel_hi - 2.0 * shift.to(torch.float32)
+    cell_new = state.cell_xy + shift
+    n = torch.tensor(domain.ncells, dtype=torch.int32, device=dev)
+    per = torch.tensor(domain.periodic, dtype=torch.bool, device=dev)
+    wrapped = torch.where(per, torch.remainder(cell_new, n), cell_new)
+    clamped = torch.clamp(wrapped, min=torch.zeros_like(n), max=n - 1)
+    # Pin escapers at the near edge (see _migrate).
+    rel_exact = torch.where(wrapped == clamped, rel_new, torch.clamp(rel_hi, -1.0, 1.0))
+    rel_stored = rel_exact.to(dtype)
+    return (RCLLState(cell_xy=clamped, rel=rel_stored),
+            rel_exact - rel_stored.to(torch.float32))
+
+
 class PackedState(NamedTuple):
     """RCLL state physically reordered by flat cell id, plus the packing
     (order/inverse permutations and the binning of the packed arrays)."""
@@ -87,6 +114,29 @@ def pack_state(domain: Domain, state: RCLLState, capacity: int,
     )
     rc = RCLLState(cell_xy=packing.binning.cell_xy, rel=packing.pack(state.rel))
     return PackedState(rc=rc, packing=packing)
+
+
+def packed_neighbors(domain: Domain, pstate: PackedState, *, dtype=NNPS_STORE,
+                     compute_dtype=None, k: int, include_self: bool = False,
+                     radius_cell: float | None = None, window: int | None = None,
+                     ds: float | None = None, chunk: int = 0) -> nnps.NeighborList:
+    """Neighbor search on the packed arrays (packed indexing): the
+    table-free merged-window search (:func:`nnps.rcll_neighbors_windows`),
+    whose invalid slots hold exactly the dummy id N.
+
+    window: merged candidate budget per particle over the whole 3^dim
+    neighborhood; by default :func:`nnps.auto_window` from ``ds`` when
+    given, else from the table's capacity. Unlike the dense table, the
+    window search never drops particles at per-cell capacity: coverage
+    is bounded by the merged budget only, and truncation is flagged.
+    """
+    cap = pstate.packing.binning.table.shape[1]
+    if window is None:
+        window = nnps.auto_window(domain, ds=ds, capacity=cap)
+    return nnps.rcll_neighbors_windows(
+        domain, pstate.rc.rel, pstate.rc.cell_xy, pstate.packing.binning.counts,
+        dtype=dtype, compute_dtype=compute_dtype, k=k, window=window,
+        include_self=include_self, radius_cell=radius_cell, chunk=chunk)
 
 
 def neighbors(domain: Domain, state: RCLLState, *, dtype=NNPS_STORE, k: int,
