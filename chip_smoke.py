@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # all phases but the profile (6)
     python3 chip_smoke.py --phases 1,10   # build + the list backends and absolute algos
+    python3 chip_smoke.py --phases 1,11   # build + the guarded main path (health guard)
     python3 chip_smoke.py --phases 1,9    # build + llama3.2-3b served (K6, K7)
     python3 chip_smoke.py --phases 1,9 --parent build/parent  # K7 beside an earlier tree's
     python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1, K3, K4, K5 beside it
@@ -112,7 +113,26 @@ Phases (each prints its own lines and raises on failure):
      backend; the skinned dam break (~260k) on xla against kernel; approach
      I (``algo="cell"``, fp32) against rcll on the kernel backend at the
      Table 5 gate; ``algo="all"`` (fp32) against rcll on the reference
-     backend at ds = 1/256 (N = 65,536: the all-list search is O(N^2)).
+     backend at ds = 1/256 (N = 65,536: the all-list search is O(N^2));
+ 11. the guarded main path: taylor_green at N = 1,048,576 (fp16 records,
+     kernel backend) through ``recovery.run_guarded`` in blocks of 10
+     steps, each gate raising on failure: (a) the clean run equals the
+     unguarded one bit for bit, no events, K1/K2 launched once a step, a
+     checkpoint saved every block; (b) a NaN velocity at step 15 is
+     disarmed and the replay equals (a) bit for bit (also on a Verlet-
+     skinned variant, whose in-place steps between rebuilds are where an
+     aliased snapshot shows), K1/K2 launched for the replayed block; (c)
+     a teleport at step 15 trips rho_dev under a limit set from (a)'s own
+     rho_err and recovers finite; (d) capacity 2 trips cell_overflow at
+     step 0, one regrow, equal to a fresh run under the regrown config;
+     (e) phase 4's dam break with dt x 8 halves dt and ends finite; (f) a
+     strict policy raises at step 10; (g) (a)'s newest checkpoint
+     restores equal to (a), and with it truncated the step before it
+     finishes equal to (a); (h) readings: steps/s guarded and unguarded,
+     one host snapshot's bytes and ms, one restore's ms, peak memory.
+     Then three faults planted by monkeypatching the guard: the snapshot
+     aliasing the live carry -> (b), check_carry's NaN bits masked ->
+     (b) and (f), a regrow keeping the old capacity -> (d).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -2216,6 +2236,397 @@ def phase10_planted_faults() -> list:
     return missed
 
 
+# --------------------------------------------------------------------------
+# phase 11: the guarded main path
+# --------------------------------------------------------------------------
+P11_DS = 1.0 / 1024
+P11_BLOCK = 10
+P11_STEPS = 40
+P11_FAULT_STEP = 15  # in the second block, so the rollback point is step 10
+#: The teleport gate's rho_dev limit, as a multiple of the clean run's
+#: largest observed rho_err (tests/test_health.py:144 sets its lattice's
+#: limit 2.5x above that lattice's clean deviation).
+P11_RHO_DEV_MARGIN = 2.0
+
+
+def _same_state(a, b) -> bool:
+    """Bit for bit in v, rho, rc.rel and rc.cell_xy."""
+    return all(torch.equal(x, y) for x, y in (
+        (a.fluid.v, b.fluid.v), (a.fluid.rho, b.fluid.rho),
+        (a.rc.rel, b.rc.rel), (a.rc.cell_xy, b.rc.cell_xy)))
+
+
+def _fluid_finite(state) -> bool:
+    fl = ~state.fixed
+    return bool(torch.isfinite(state.fluid.v[fl]).all()
+                and torch.isfinite(state.fluid.rho[fl]).all())
+
+
+def p11_main_case():
+    """taylor_green at N = 1,048,576, fp16 records, the kernel backend."""
+    from repro_torch.core import cases
+
+    return cases.build_case("taylor_green", ds=P11_DS).build()
+
+
+def p11_skinned_case(cfg, st):
+    """The same flow with a Verlet skin (cell_factor 1.5, skin 0.5 r): it
+    rebuilds every ~20 steps, so the steps between rebuilds update the
+    carry in place. The main config (skin 0) rebuilds every step into
+    fresh tensors, where an aliased snapshot cannot show."""
+    from repro_torch.core import solver
+    from repro_torch.core.domain import Domain
+
+    d = cfg.domain
+    sk = dataclasses.replace(cfg, domain=Domain(lo=d.lo, hi=d.hi, h=d.h, cell_factor=1.5,
+                                                periodic=d.periodic), skin=0.5 * d.radius)
+    return sk, solver.init_state(sk, solver.positions(cfg, st), st.fluid.v, st.fluid.m,
+                                 st.fluid.rho)
+
+
+def _guarded(cfg, st, policy=None, **kw):
+    from repro_torch.core import recovery
+
+    policy = policy or recovery.GuardPolicy(block=P11_BLOCK)
+    return recovery.run_guarded(cfg, st, kw.pop("nsteps", P11_STEPS), policy, **kw)
+
+
+def p11_clean(ctx: dict) -> None:
+    """(a) the clean guarded run equals the unguarded one bit for bit, no
+    events, K1 and K2 launched once a step; (g)'s checkpoints saved."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import solver
+
+    cfg, st = ctx["cfg"], ctx["st"]
+    mgr = CheckpointManager(ctx["ckpt_dir"], keep=0)
+    _k12_zero()
+    out, stats, rep, rows = _guarded(cfg, st, observe_every=P11_BLOCK, checkpoint=mgr,
+                                     checkpoint_every=1)
+    l1, l2 = _k12_read()
+    mgr.close()
+    ref, ref_stats = solver.simulate_stats(cfg, st, P11_STEPS)
+    ctx["clean"], ctx["clean_rebuilds"] = out, stats.rebuilds
+    ctx["clean_rho_err"] = max(float(r[3]) for r in rows)
+    same = _same_state(out, ref)
+    log(f"[11a] clean: {P11_STEPS} steps in blocks of {P11_BLOCK}: events "
+        f"{[e.action for e in rep.events]}, blocks {rep.blocks}, bit-equal to simulate_stats "
+        f"{same}; rebuilds {stats.rebuilds}/{ref_stats.rebuilds}; K1/K2 launches {l1}/{l2} "
+        f"(want {P11_STEPS} each: K1 packs the records every step); rho_err at the block ends "
+        f"{[float(r[3]) for r in rows]}; checkpoints {CheckpointManager(ctx['ckpt_dir']).all_steps()}")
+    if rep.events or not same or (l1, l2) != (P11_STEPS, P11_STEPS):
+        raise AssertionError("phase 11 (a) clean gate failed")
+
+
+def p11_disarm(ctx: dict) -> None:
+    """(b) a NaN velocity at step 15: one disarm, the replay bit-equal to
+    the clean run; on the main config and on the skinned one."""
+    from repro_torch.core import health, solver
+
+    fault = health.FaultSpec("nan_v", step=P11_FAULT_STEP)
+    bad = []
+    for label, cfg, st in (("main", ctx["cfg"], ctx["st"]),
+                           ("skinned", ctx["sk_cfg"], ctx["sk_st"])):
+        clean = ctx["clean"] if label == "main" else solver.simulate(cfg, st, P11_STEPS)
+        _k12_zero()
+        try:
+            out, stats, rep, _ = _guarded(dataclasses.replace(cfg, fault=fault), st)
+        except health.SimulationDiverged as e:
+            log(f"[11b] {label}: raised {e}")
+            bad.append(label)
+            continue
+        l1, l2 = _k12_read()
+        actions = [e.action for e in rep.events]
+        same = _same_state(out, clean)
+        want = P11_STEPS + P11_BLOCK
+        log(f"[11b] {label}: nan_v at step {P11_FAULT_STEP}: events {actions} "
+            f"{[(e.step, e.checks) for e in rep.events]}, bit-equal to the clean run {same}, "
+            f"K1/K2 launches {l1}/{l2} (want {want}: the replayed block), rebuilds "
+            f"{stats.rebuilds}")
+        if actions != ["disarm"] or not same or (l1, l2) != (want, want):
+            bad.append(label)
+    if bad:
+        raise AssertionError(f"phase 11 (b) disarm gate failed: {bad}")
+
+
+def p11_teleport(ctx: dict) -> None:
+    """(c) particle 0 teleported onto particle N/2 at step 15, under a
+    rho_dev limit set from the clean run's own observables."""
+    from repro_torch.core import health, recovery, solver
+
+    cfg, st = ctx["cfg"], ctx["st"]
+    n = st.xn.shape[0]
+    tele = dataclasses.replace(cfg, fault=health.FaultSpec(
+        "teleport", step=P11_FAULT_STEP, particle=0, target=n // 2))
+    probe = solver.run_persistent(tele, solver.init_persistent(tele, st), 2 * P11_BLOCK)
+    spike = float(health.check_carry(tele, probe).rho_dev)
+    del probe
+    limit = P11_RHO_DEV_MARGIN * ctx["clean_rho_err"]
+    out, _, rep, _ = _guarded(tele, st, recovery.GuardPolicy(block=P11_BLOCK,
+                                                             rho_dev_limit=limit))
+    events = [(e.action, e.step, e.checks, e.stats.get("rho_dev")) for e in rep.events]
+    finite = _fluid_finite(out)
+    log(f"[11c] teleport 0 -> {n // 2} at step {P11_FAULT_STEP}: clean run's largest rho_err "
+        f"{ctx['clean_rho_err']:.6g}, limit {limit:.6g}, the unguarded teleport's rho_dev at "
+        f"step {2 * P11_BLOCK} {spike:.6g}; events {events}; finite {finite}; bit-equal to "
+        f"the clean run {_same_state(out, ctx['clean'])}")
+    if ([e.action for e in rep.events] != ["disarm"] or "rho_dev" not in rep.events[0].checks
+            or not finite):
+        raise AssertionError("phase 11 (c) teleport gate failed")
+
+
+def p11_cap_regrow(ctx: dict) -> None:
+    """(d) capacity 2: cell_overflow at step 0, one regrow; the run equals
+    a fresh run under the regrown config bit for bit."""
+    from repro_torch.core import recovery, solver
+
+    cfg, st = ctx["cfg"], ctx["st"]
+    n = st.xn.shape[0]
+    bad_cfg = recovery.apply_named_fault(cfg, "cap", P11_STEPS, n)
+    out, stats, rep, _ = _guarded(bad_cfg, st)
+    events = [(e.action, e.step, e.checks, e.detail) for e in rep.events]
+    fresh = solver.simulate(rep.cfg, st, P11_STEPS)
+    same_fresh = _same_state(out, fresh)
+    same_clean = _same_state(out, ctx["clean"])
+    log(f"[11d] capacity 2: events {events}; cap {cfg.cap(n)} -> {rep.cfg.cap(n)}; bit-equal "
+        f"to a fresh run under report.cfg {same_fresh}; bit-equal to the unfaulted run at the "
+        f"robust cap {cfg.cap(n)}: {same_clean} (a reading); overflow {stats.overflow}")
+    if (len(rep.events) != 1 or rep.events[0].action != "regrow" or rep.events[0].step != 0
+            or "cell_overflow" not in rep.events[0].checks or not same_fresh or stats.overflow):
+        raise AssertionError("phase 11 (d) cap regrow gate failed")
+
+
+def p11_dt_backoff(ctx: dict) -> None:
+    """(e) phase 4's dam break (~250k) with dt x 8: one or more halvings
+    and a finite result."""
+    from repro_torch.core import cases, recovery
+
+    ds = cases.resolve_ds("dam_break", 250_000)
+    radius = 2.0 * cases.build_case("dam_break", ds=ds).h
+    cfg, st = cases.build_case("dam_break", ds=ds, cell_factor=1.5, skin=0.25 * radius,
+                               v0=1.0).build()
+    bad_cfg = recovery.apply_named_fault(cfg, "dt", P11_STEPS, st.xn.shape[0])
+    t0 = time.perf_counter()
+    out, stats, rep, _ = _guarded(bad_cfg, st, recovery.GuardPolicy(block=20))
+    wall = time.perf_counter() - t0
+    finite = _fluid_finite(out)
+    log(f"[11e] dam_break N {st.xn.shape[0]} dt {cfg.dt:.4e} x 8: events "
+        f"{[(e.action, e.step, e.checks) for e in rep.events]}; final dt {rep.cfg.dt:.4e}; "
+        f"finite {finite}; {stats.steps} steps, rebuilds {stats.rebuilds}, {wall:.2f} s")
+    if rep.dt_halvings < 1 or not finite or stats.steps != P11_STEPS:
+        raise AssertionError("phase 11 (e) dt backoff gate failed")
+
+
+def p11_strict(ctx: dict) -> None:
+    """(f) the NaN fault under a strict policy raises at step 10."""
+    from repro_torch.core import health, recovery
+
+    cfg = dataclasses.replace(ctx["cfg"], fault=health.FaultSpec("nan_v", step=P11_FAULT_STEP))
+    try:
+        _guarded(cfg, ctx["st"], recovery.GuardPolicy(block=P11_BLOCK, strict=True))
+    except health.SimulationDiverged as e:
+        log(f"[11f] strict: raised at step {e.step} with checks {e.checks}")
+        if e.step == P11_BLOCK and "nan_v" in e.checks:
+            return
+        raise AssertionError("phase 11 (f) strict gate raised the wrong error") from e
+    log("[11f] strict: did not raise")
+    raise AssertionError("phase 11 (f) strict gate failed: no raise")
+
+
+def p11_resume(ctx: dict) -> None:
+    """(g) (a)'s checkpoints: the newest restores into a fresh carry equal
+    to (a); with the newest file truncated the manager falls back to the
+    step before it, and that carry run to the end equals (a)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import interop, solver
+
+    cfg, st = ctx["cfg"], ctx["st"]
+    mgr = CheckpointManager(ctx["ckpt_dir"], keep=0)
+    template = interop.carry_to_numpy(solver.init_persistent(cfg, st))
+    ok = []
+    for truncate in (False, True):
+        if truncate:
+            p = Path(ctx["ckpt_dir"]) / f"step_{mgr.latest_step():08d}" / "arrays.npz"
+            p.write_bytes(p.read_bytes()[: p.stat().st_size // 2])
+        restored, step = mgr.restore(template)
+        carry = interop.carry_from_numpy(restored, st.xn.device)
+        carry = solver.run_persistent(cfg, carry, P11_STEPS - step)
+        same = _same_state(solver.finalize_persistent(cfg, carry), ctx["clean"])
+        log(f"[11g] resume{' after truncating the newest file' if truncate else ''}: restored "
+            f"step {step}, ran {P11_STEPS - step} more, bit-equal to (a) {same}, rebuilds "
+            f"{carry.rebuilds} (clean {ctx['clean_rebuilds']})")
+        ok.append(same and step == (P11_STEPS - P11_BLOCK if truncate else P11_STEPS))
+    mgr.close()
+    if not all(ok):
+        raise AssertionError("phase 11 (g) resume gate failed")
+
+
+def p11_readings(ctx: dict) -> None:
+    """(h) readings, not gates: steps/s guarded and unguarded, one host
+    snapshot's ms and bytes, one restore's ms, peak device memory."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.core import recovery, solver
+    from repro_torch.core.api import Simulation
+
+    cfg, st = ctx["cfg"], ctx["st"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates = {}
+    for label, guard in (("unguarded", None), ("guarded", recovery.GuardPolicy())):
+        sim = Simulation(cfg=cfg, state=st)
+        _, rates[label] = sim.run_timed(P11_STEPS, observe_every=P11_BLOCK, guard=guard)
+    peak = torch.cuda.max_memory_allocated()
+    carry = solver.run_persistent(cfg, solver.init_persistent(cfg, st), 3)
+    torch.cuda.synchronize()
+    snap_ms, restore_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        snap = recovery._host_snapshot(carry)
+        snap_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        recovery._restore(snap, cfg, cfg, st.xn.device)
+        torch.cuda.synchronize()
+        restore_ms.append(1e3 * (time.perf_counter() - t0))
+    nbytes = sum(np.asarray(a).nbytes for a in _flatten(snap).values())
+    split = p11_guard_split(cfg, st)
+    log(gpu_line())
+    log(f"[11h] steps/s of run_timed({P11_STEPS}, observe_every={P11_BLOCK}): unguarded "
+        f"{rates['unguarded']:.3f}, guarded {rates['guarded']:.3f} (ratio "
+        f"{rates['guarded'] / rates['unguarded']:.3f}); one host snapshot {nbytes} bytes in "
+        f"{min(snap_ms):.3f} ms (best of 5; all {[round(x, 3) for x in snap_ms]}), one restore "
+        f"{min(restore_ms):.3f} ms (all {[round(x, 3) for x in restore_ms]}); "
+        f"max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
+    log(f"[11h] where a guarded run_guarded({P11_STEPS}) spends its host time (synchronized "
+        f"around each part): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+
+
+def p11_guard_split(cfg, st) -> dict:
+    """Host ms of one guarded run by part: the host snapshots, the health
+    reductions with their word read, and the rest (init, the steps, the
+    final unpack), each part synchronized before and after."""
+    from repro_torch.core import recovery
+
+    parts = {"snapshots": 0.0, "checks": 0.0}
+    snapshot, check = recovery._host_snapshot, recovery._check
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if key == "checks":
+                int(out.word)
+            torch.cuda.synchronize()
+            parts[key] += 1e3 * (time.perf_counter() - t0)
+            return out
+        return run
+
+    recovery.run_guarded(cfg, st, P11_STEPS, recovery.GuardPolicy(block=P11_BLOCK))  # warm
+    torch.cuda.synchronize()
+    with _planted(recovery, _host_snapshot=timed("snapshots", snapshot),
+                  _check=timed("checks", check)):
+        t0 = time.perf_counter()
+        recovery.run_guarded(cfg, st, P11_STEPS, recovery.GuardPolicy(block=P11_BLOCK))
+        torch.cuda.synchronize()
+        total = 1e3 * (time.perf_counter() - t0)
+    return dict(total=total, **parts, rest=total - sum(parts.values()))
+
+
+P11_GATES = (("(a) clean", p11_clean), ("(b) disarm", p11_disarm),
+             ("(c) teleport", p11_teleport), ("(d) cap regrow", p11_cap_regrow),
+             ("(e) dt backoff", p11_dt_backoff), ("(f) strict", p11_strict),
+             ("(g) resume", p11_resume))
+
+
+def _p11_gate(ctx: dict, name: str, fn, planted: bool = False) -> bool:
+    """Run one gate; False if it failed (an AssertionError or the guard's
+    own SimulationDiverged; under a planted fault, any error)."""
+    from repro_torch.core import health
+
+    caught = Exception if planted else (AssertionError, health.SimulationDiverged)
+    try:
+        fn(ctx)
+        return True
+    except caught as e:
+        log(f"[11] {name} FAILED: {type(e).__name__}: {e}")
+        return False
+
+
+@contextlib.contextmanager
+def _planted(mod, **attrs):
+    saved = {k: getattr(mod, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(mod, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(mod, k, v)
+
+
+def p11_planted_faults(ctx: dict) -> list:
+    """Faults planted by monkeypatching the guard (this script only), each
+    of which the named gates must fail: the snapshot aliasing the live
+    carry (its copies dropped) -> (b); check_carry with the NaN bits
+    masked off -> (b) and (f); a regrow that keeps the old capacity ->
+    (d). Returns the (fault, gate) pairs that passed."""
+    from repro_torch.core import health, recovery
+
+    orig_check = health.check_carry
+
+    def no_nan_bits(*args, **kw):
+        hw = orig_check(*args, **kw)
+        return hw._replace(word=hw.word & ~(health.NAN_X | health.NAN_V | health.NAN_RHO))
+
+    plants = (
+        ("aliased snapshot", dict(mod=recovery, _host_snapshot=lambda carry: carry,
+                                  _to_device=lambda snap, device: snap), ("(b) disarm",)),
+        ("NaN bits masked", dict(mod=health, check_carry=no_nan_bits),
+         ("(b) disarm", "(f) strict")),
+        ("regrow keeps the capacity", dict(
+            mod=recovery, _regrown_capacity=lambda cfg, policy, occ, n: cfg.cap(n)),
+         ("(d) cap regrow",)),
+    )
+    gates = dict(P11_GATES)
+    missed = []
+    for fault, attrs, names in plants:
+        mod = attrs.pop("mod")
+        for name in names:
+            with _planted(mod, **attrs):
+                caught = not _p11_gate(ctx, name, gates[name], planted=True)
+            log(f"[11] planted {fault}: {name} "
+                + ("failed, as it must" if caught else "PASSED: the fault was not caught"))
+            if not caught:
+                missed.append((fault, name))
+    return missed
+
+
+def phase11_guarded() -> None:
+    """The guarded main path on the card: gates (a)-(g), the readings (h),
+    then the three planted faults."""
+    import tempfile
+
+    cfg, st = p11_main_case()
+    n = st.xn.shape[0]
+    sk_cfg, sk_st = p11_skinned_case(cfg, st)
+    log(f"[11] taylor_green ds=1/{round(1 / P11_DS)}: N {n}, backend "
+        f"{cfg.resolved_backend}, records {cfg.policy.records}, cap {cfg.cap(n)}, dt "
+        f"{cfg.dt:.4e}; skinned variant: cells {sk_cfg.domain.ncells}, skin {sk_cfg.skin:.4e}, "
+        f"cap {sk_cfg.cap(n)}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = dict(cfg=cfg, st=st, sk_cfg=sk_cfg, sk_st=sk_st, ckpt_dir=tmp)
+        failed = [name for name, fn in P11_GATES if not _p11_gate(ctx, name, fn)]
+        if "(a) clean" not in failed:
+            p11_readings(ctx)
+            missed = p11_planted_faults(ctx)
+        else:
+            missed = []
+    log(f"[11] phase 11 in {time.perf_counter() - t0:.1f} s")
+    if failed or missed:
+        raise AssertionError(f"phase 11 failed: gates {failed}, planted faults not caught "
+                             f"{missed}")
+
+
 def phase6_profile(nsteps: int = 10) -> None:
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
@@ -2269,7 +2680,7 @@ def phase6_profile(nsteps: int = 10) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11",
                     help="comma-separated phases to run (default: all but 6)")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of an earlier tree whose K1, K3-K5 and K7 phases 3, 8 "
@@ -2303,6 +2714,8 @@ def main() -> int:
         phase9_serving(results, args.parent)
     if 10 in phases:
         phase10_backends()
+    if 11 in phases:
+        phase11_guarded()
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
     if 1 not in phases:
         log(gpu_line())

@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import cases as cases_lib
-from repro_torch.core import solver
+from repro_torch.core import recovery, solver
 from repro_torch.core.health import observe_state
 
 
@@ -36,6 +36,9 @@ class SimResult(NamedTuple):
     state: solver.SPHState  # final state, original particle indexing
     stats: solver.SimStats
     observables: Observables | None
+    # GuardReport of a guarded run (recovery actions taken, final
+    # escalated config); None on unguarded runs.
+    report: recovery.GuardReport | None = None
 
 
 @dataclasses.dataclass
@@ -70,15 +73,29 @@ class Simulation:
         ``solver.simulate_stats``). Otherwise the run takes ``nsteps``
         rounded DOWN to a whole number of sample blocks (at least one).
         Every ``cfg.algo`` runs: the persistent RCLL pipeline, or the
-        absolute-coordinate stepper for "all" and "cell". ``guard`` (the
-        health guard) is not ported yet.
+        absolute-coordinate stepper for "all" and "cell".
+
+        ``guard`` enables the health guard (RCLL only): ``True`` for the
+        default :class:`recovery.GuardPolicy`, or a policy. The run then
+        checks the carry after every block, recovers by rollback +
+        escalation (disarm, capacity regrow, dt backoff, records
+        degrade), keeps the escalated config in ``self.cfg`` and raises
+        :class:`recovery.SimulationDiverged` only when the policy is
+        exhausted. The report rides ``SimResult.report``.
         """
-        if guard:
-            raise NotImplementedError(
-                "guard= is not ported yet: ROADMAP Queue 1 item 6 (health "
-                "guard and recovery)"
-            )
         cfg = self.cfg
+        if guard:
+            if cfg.algo != "rcll":
+                raise ValueError("guard requires the persistent rcll pipeline")
+            policy = guard if isinstance(guard, recovery.GuardPolicy) else None
+            every = min(observe_every, nsteps) if observe_every > 0 else 0
+            n = max(1, nsteps // every) * every if every else nsteps
+            out, stats, report, rows = recovery.run_guarded(
+                cfg, self.state, n, policy, observe_every=every)
+            obs = Observables(*(torch.stack(c) for c in zip(*rows))) if every else None
+            self.cfg = report.cfg  # keep escalations for chained runs
+            self.state = out
+            return SimResult(out, stats, obs, report)
         if observe_every <= 0:
             out, stats = solver.simulate_stats(cfg, self.state, nsteps)
             self.state = out
@@ -109,7 +126,13 @@ class Simulation:
     def run_timed(self, nsteps: int, observe_every: int = 0,
                   guard=None) -> tuple[SimResult, float]:
         """``run`` twice (the first warms up the kernels and allocator)
-        and report steps/sec of the second; returns its SimResult."""
+        and report steps/sec of the second; returns its SimResult.
+
+        The rate counts the steps asked for, ``nsteps``, not the steps
+        run: an observed run rounds ``nsteps`` down to whole blocks, so
+        ``run_timed(55, observe_every=10)`` runs 50 steps and divides 55
+        by their wall time. This mirrors the JAX package (ROADMAP Queue 3
+        entry E, a fault of the reference)."""
         dev = self.state.xn.device
         self.run(nsteps, observe_every, guard=guard)
         if dev.type == "cuda":
@@ -119,4 +142,4 @@ class Simulation:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt_wall = time.perf_counter() - t0
-        return res, res.stats.steps / dt_wall
+        return res, nsteps / dt_wall

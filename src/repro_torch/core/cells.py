@@ -311,6 +311,40 @@ def from_cell_major(binning: CellBinning, table_vals: torch.Tensor) -> torch.Ten
     return flat[slot_of]
 
 
+def _shifted_zero(grid: torch.Tensor, off: int, axis: int) -> torch.Tensor:
+    """Shift ``grid`` so out[i] = grid[i + off] along ``axis``, zero-filled."""
+    if off == 0:
+        return grid
+    out = torch.zeros_like(grid)
+    n = grid.shape[axis]
+    if off > 0:
+        out.narrow(axis, 0, n - off).copy_(grid.narrow(axis, off, n - off))
+    else:
+        out.narrow(axis, -off, n + off).copy_(grid.narrow(axis, 0, n + off))
+    return out
+
+
+def max_neighborhood_occupancy(domain: Domain, counts: torch.Tensor) -> torch.Tensor:
+    """Max over cells of the total 3^dim-neighborhood occupancy (a device
+    scalar): the exact per-particle candidate-demand bound of the merged-
+    window search, and an upper bound on any particle's true neighbor
+    count. The health guard's regrow sizes ``window`` and
+    ``max_neighbors`` from it."""
+    grid = counts.reshape(tuple(domain.ncells))
+    total = torch.zeros_like(grid)
+    for off in neighbor_cell_offsets(domain.dim):
+        g = grid
+        for a, o in enumerate(off):
+            if o == 0:
+                continue
+            if domain.periodic[a]:
+                g = torch.roll(g, -int(o), dims=a)
+            else:
+                g = _shifted_zero(g, int(o), axis=a)
+        total = total + g
+    return torch.max(total)
+
+
 def default_capacity(domain: Domain, n_particles: int, safety: float = 3.0) -> int:
     """Per-cell capacity estimate: mean occupancy x safety, >= 4."""
     mean = n_particles / max(1, domain.ncells_total)

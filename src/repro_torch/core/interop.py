@@ -11,6 +11,16 @@ JAX field names (:func:`fields_to_numpy` / :func:`fields_from_numpy`):
 ``RCLLState`` (cell_xy, rel), ``CellBinning`` (table, counts, cell_id,
 cell_xy, order, overflow) and ``NeighborList`` (idx, mask, count, trunc).
 
+The persistent carry travels the same way (:func:`carry_to_numpy` /
+:func:`carry_from_numpy`): a ``PersistentCarry`` of numpy leaves, the
+health guard's host snapshot and the tree a ``CheckpointManager`` of
+either package writes, under the same paths (``st/fluid/v``,
+``binning/counts``, ...). The step counters travel as int32 0-d arrays,
+as JAX keeps them; JAX's uint32 ``flags`` come back as the port's int32.
+``FaultSpec`` and ``GuardPolicy`` travel as their field dicts
+(``dataclasses.asdict``), which the port's constructors take as they
+are: ``health.FaultSpec(**fields)``, ``recovery.GuardPolicy(**fields)``.
+
 The LM substrate's parameters and KV caches travel the same way:
 :func:`lm_params_from_numpy` takes JAX's parameter paths
 (``embed_tokens.embed``, ``layers.attn.wq`` stacked (n_layers, ...),
@@ -27,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import cells, nnps, rcll, sph
-from repro_torch.core.solver import SPHState
+from repro_torch.core.solver import PersistentCarry, SPHState
 
 _DTYPES = {
     "xn": torch.float32,
@@ -156,3 +166,48 @@ def kv_cache_from_numpy(cls: type, fields: dict, device) -> NamedTuple:
 def kv_cache_to_numpy(cache: NamedTuple) -> dict[str, np.ndarray]:
     """Numpy arrays keyed by field name (bf16 as fp32, exactly)."""
     return fields_to_numpy(cache)
+
+
+def _map_leaves(tree, fn):
+    """``fn`` over the leaves of a tree of NamedTuples (None kept)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_leaves(v, fn) for v in tree))
+    return fn(tree)
+
+
+#: The carry's host-int fields (int32 0-d arrays on the numpy side).
+_HOST_INTS = ("rebuilds", "steps")
+
+
+def carry_to_numpy(carry: PersistentCarry) -> PersistentCarry:
+    """A host copy of the carry: every tensor copied to a numpy array
+    that owns its memory (never a view of the carry, which the solver
+    updates in place), the step counters as int32 0-d arrays."""
+
+    def host(t):
+        if isinstance(t, torch.Tensor):
+            return t.detach().to("cpu", copy=True).numpy()
+        return np.asarray(t, dtype=np.int32)
+
+    return _map_leaves(carry, host)
+
+
+def carry_from_numpy(tree: PersistentCarry, device) -> PersistentCarry:
+    """A carry on ``device`` from a ``PersistentCarry`` of numpy leaves
+    (:func:`carry_to_numpy`'s, or either package's checkpoint restored
+    with one as template). Every tensor is a fresh copy, so the carry
+    owns its storage and the tree can restore again."""
+    dev = torch.device(device)
+    fields = {}
+    for name, value in zip(PersistentCarry._fields, tree):
+        if name in _HOST_INTS:
+            fields[name] = int(value)
+        elif name == "flags" and value is not None:
+            fields[name] = torch.tensor(np.asarray(value).astype(np.int32), device=dev)
+        else:
+            fields[name] = _map_leaves(
+                value, lambda a: torch.tensor(np.asarray(a), device=dev))
+    return PersistentCarry(**fields)
+

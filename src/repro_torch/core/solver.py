@@ -95,6 +95,10 @@ class SPHConfig:
     # cell table or a neighbor list overflowed during the run (one host
     # read after it).
     check_overflow: bool = False
+    # Deterministic fault-injection hook (health.FaultSpec) of the
+    # recovery tests and the guarded smoke: None in production. Fires in
+    # step_persistent when the step counter matches.
+    fault: health.FaultSpec | None = None
 
     @property
     def h(self) -> float:
@@ -557,6 +561,11 @@ def exact_neighbor_list(cfg: SPHConfig, carry: PersistentCarry) -> nnps.Neighbor
 
 def step_persistent(cfg: SPHConfig, carry: PersistentCarry) -> PersistentCarry:
     """Rebuild if needed (decided on the host) + one physics step."""
+    if cfg.fault is not None:
+        # Injection precedes the rebuild decision, so a teleported
+        # particle's spiked displacement rebuilds in the same step (the
+        # overlap must reach the cell tables).
+        carry = health.inject_fault(cfg.fault, carry)
     if _needs_rebuild(cfg, carry):
         carry = _rebuild(cfg, carry)
     return _physics_step(cfg, carry)

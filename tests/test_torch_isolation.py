@@ -12,6 +12,15 @@ from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+#: The port's subpackages; each must be present in PORT_FILES.
+SUBPACKAGES = ("core", "kernels", "models", "configs", "launch", "checkpoint", "runtime")
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_is_scanned(sub):
+    pkg = ROOT / "src" / "repro_torch" / sub
+    assert (pkg / "__init__.py") in PORT_FILES
+    assert any(p.parent == pkg and p.name != "__init__.py" for p in PORT_FILES), sub
 
 
 def _imported_modules(path: Path) -> list[str]:

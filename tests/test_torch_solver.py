@@ -123,14 +123,39 @@ def test_static_rebuild_cadence():
 
 
 def test_unported_options_raise():
-    """What still raises: the health guard (ROADMAP Queue 1 item 6) and
-    the JAX name of the kernel backend, which the port calls "kernel"."""
+    """What still raises: the JAX name of the kernel backend, which the
+    port calls "kernel". The health guard is ported: ``guard=True`` runs
+    and reports, and raises only off the rcll pipeline, as in JAX."""
     cfg, st = tcases.build_case("taylor_green", ds=1 / 16).build(device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         tsolver.simulate(dataclasses.replace(cfg, backend="pallas"), st, 1)
     sim = tapi.Simulation.from_case("taylor_green", device="cpu", ds=1 / 16)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    res = sim.run(2, guard=True)
+    assert res.report is not None and res.report.events == [] and res.stats.steps == 2
+    sim.cfg = dataclasses.replace(sim.cfg, algo="cell")
+    with pytest.raises(ValueError, match="rcll"):
         sim.run(2, guard=True)
+
+
+def test_run_timed_rate_counts_the_steps_asked_for_like_jax(monkeypatch):
+    """ROADMAP Queue 3 entry E, a fault of the reference mirrored: an
+    observed run rounds 55 steps down to 5 blocks of 10, and both
+    packages divide the 55 steps asked for (not the 50 run) by the wall
+    time of the timed run."""
+    import itertools
+    import types
+
+    from repro.core import api as japi
+
+    for mod in (japi, tapi):
+        clock = itertools.cycle([100.0, 102.5])  # t0, t1 of each timed run
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(perf_counter=lambda c=clock: next(c)))
+    jsim = japi.Simulation.from_case("taylor_green", ds=1 / 16)
+    tsim = tapi.Simulation.from_case("taylor_green", device="cpu", ds=1 / 16)
+    (rj, rate_j), (rt, rate_t) = jsim.run_timed(55, observe_every=10), tsim.run_timed(55, observe_every=10)
+    assert rate_j == rate_t == 55 / 2.5
+    assert int(rj.stats.steps) == rt.stats.steps == 50
+    assert rt.observables.t.shape == (5,)
 
 
 def test_check_overflow_raises_on_undersized_cells():
