@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # all phases but the profile (6)
     python3 chip_smoke.py --phases 1,10   # build + the list backends and absolute algos
     python3 chip_smoke.py --phases 1,11   # build + the guarded main path (health guard)
+    python3 chip_smoke.py --phases 1,12   # build + the ensemble (4 members x 1M particles)
     python3 chip_smoke.py --phases 1,9    # build + llama3.2-3b served (K6, K7)
     python3 chip_smoke.py --phases 1,9 --parent build/parent  # K7 beside an earlier tree's
     python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1, K3, K4, K5 beside it
@@ -132,7 +133,31 @@ Phases (each prints its own lines and raises on failure):
      one host snapshot's bytes and ms, one restore's ms, peak memory.
      Then three faults planted by monkeypatching the guard: the snapshot
      aliasing the live carry -> (b), check_carry's NaN bits masked ->
-     (b) and (f), a regrow keeping the old capacity -> (d).
+     (b) and (f), a regrow keeping the old capacity -> (d);
+ 12. the ensemble: 4 members of phase 11's skinned taylor_green at N =
+     1,048,576 each (4,194,304 particles; fp16 records, kernel backend;
+     member 0 the case's own, members 1-3 with seeded velocity
+     perturbations) through ``ensemble.run_ensemble`` in blocks of 10, 40
+     steps, each gate raising on failure: (a) every member healthy and
+     bit-equal to its solo ``run_persistent`` under ``member_config``, K1
+     and K2 launched once a batched step (40, not 160), the folded launch
+     held against the plain versions; (b) a NaN velocity at step 15 on
+     member 2 alone: member 2 recovered by one disarm, the others with no
+     events, all four bit-equal to their clean solo runs, launches equal
+     to the batched steps, the replayed block included; (c) a persistent
+     fault (no disarm, one dt halving, no record degrade): member 1
+     quarantined with a ``SimulationDiverged``, the others bit-equal; (d)
+     a ``LaneEngine`` of 3 slots takes requests of 20, 40, 40 and 20 steps
+     (the fourth when the first is done) in blocks of 8, each done state
+     bit-equal to its solo run; (e) a run checkpointing every block stops
+     after 20 steps, its newest checkpoint torn, and the resume finishes
+     bit-equal to (a); (f) readings: member-steps/s of the batch against
+     the members one after another through ``run_timed``, the busy share
+     of a batched block, one batch snapshot's bytes and ms, peak memory.
+     Then three faults planted by monkeypatching: the folded neighbor ids
+     not shifted by lane -> (a), the lane select passing a frozen lane's
+     stepped row -> (d), the rollback splicing another lane's snapshot
+     row -> (b).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -2537,9 +2562,10 @@ P11_GATES = (("(a) clean", p11_clean), ("(b) disarm", p11_disarm),
              ("(g) resume", p11_resume))
 
 
-def _p11_gate(ctx: dict, name: str, fn, planted: bool = False) -> bool:
-    """Run one gate; False if it failed (an AssertionError or the guard's
-    own SimulationDiverged; under a planted fault, any error)."""
+def _p11_gate(ctx: dict, name: str, fn, planted: bool = False, phase: int = 11) -> bool:
+    """Run one gate of phase 11 or 12; False if it failed (an
+    AssertionError or the guard's own SimulationDiverged; under a planted
+    fault, any error)."""
     from repro_torch.core import health
 
     caught = Exception if planted else (AssertionError, health.SimulationDiverged)
@@ -2547,7 +2573,7 @@ def _p11_gate(ctx: dict, name: str, fn, planted: bool = False) -> bool:
         fn(ctx)
         return True
     except caught as e:
-        log(f"[11] {name} FAILED: {type(e).__name__}: {e}")
+        log(f"[{phase}] {name} FAILED: {type(e).__name__}: {e}")
         return False
 
 
@@ -2627,6 +2653,331 @@ def phase11_guarded() -> None:
                              f"{missed}")
 
 
+# --------------------------------------------------------------------------
+# phase 12: the fault-isolated ensemble
+# --------------------------------------------------------------------------
+P12_LANES = 4
+P12_BLOCK = 10
+P12_STEPS = 40
+P12_FAULT_STEP = 15  # in the second block, so the rollback point is step 10
+#: (d)'s blocks: targets 20 and 40 end inside a block of 8, so finished
+#: lanes sit frozen for part of a block, where a wrong lane select shows
+#: (in blocks of 10 every target ends on a block boundary).
+P12_ENGINE_BLOCK = 8
+P12_ENGINE_TARGETS = (20, 40, 40, 20)
+
+
+def p12_members(cfg, st) -> list:
+    """P12_LANES member states: #0 the case's own, the others with seeded
+    velocity perturbations of 0.01 (tests/test_ensemble.py's members)."""
+    out = []
+    v0 = st.fluid.v.cpu().numpy()
+    for i in range(P12_LANES):
+        v = v0
+        if i:
+            rng = np.random.default_rng(100 + i)
+            v = v0 + 0.01 * rng.standard_normal(v0.shape).astype(v0.dtype)
+        out.append(st._replace(fluid=st.fluid._replace(
+            v=torch.as_tensor(v, device=st.xn.device))))
+    return out
+
+
+def _ensemble(ctx: dict, nsteps: int = P12_STEPS, policy=None, **kw):
+    from repro_torch.core import ensemble
+
+    return ensemble.run_ensemble(ctx["mcfg"], ctx["members"], nsteps,
+                                 policy or ctx["policy"], **kw)
+
+
+def _p12_solo_refs(ctx: dict) -> list:
+    """Each member's solo unguarded run under member_config (computed once)."""
+    from repro_torch.core import solver
+
+    if "solo" not in ctx:
+        ctx["solo"] = [solver.simulate(ctx["mcfg"], s, P12_STEPS) for s in ctx["members"]]
+    return ctx["solo"]
+
+
+def p12_clean(ctx: dict) -> None:
+    """(a) the clean batch: every member healthy and bit-equal to its solo
+    run, K1 and K2 launched once a batched step (not once a member); the
+    folded launch's inputs held against the plain versions."""
+    from repro_torch.kernels import rcll_force
+
+    _k12_zero()
+    store: dict = {}
+    with capture_kernel_inputs(store):
+        outs, stats, rep = _ensemble(ctx)
+    l1, l2 = _k12_read()
+    want = rep.blocks * P12_BLOCK
+    same = [_same_state(o, r) for o, r in zip(outs, _p12_solo_refs(ctx))]
+    statuses = [m.status for m in rep.members]
+    log(f"[12a] clean: {P12_LANES} members x {P12_STEPS} steps in blocks of {P12_BLOCK}: "
+        f"statuses {statuses}, blocks {rep.blocks}, bit-equal to their solo runs {same}; "
+        f"K1/K2 launches {l1}/{l2} (want {want} each, once a batched step, not "
+        f"{P12_LANES * want}); rebuilds {[s.rebuilds for s in stats]}")
+    ctx.setdefault("batch", outs)  # (e)'s reference: the first clean batch
+    if (statuses != ["healthy"] * P12_LANES or not all(same)
+            or (l1, l2) != (want, want) or want != P12_STEPS):
+        raise AssertionError("phase 12 (a) clean gate failed")
+    if "k2_check" not in ctx:  # the folded launch against the plain versions, once
+        a1, kw1 = store["k1"]
+        a2, kw2 = store["k2"]
+        check_k1(a1, kw1)
+        c2 = rcll_force.check_against_plain(a2, kw2)
+        ms1 = time_ms(lambda: wrapper("k1")(*a1, **kw1), reps=10)
+        ms2 = time_ms(lambda: wrapper("k2")(*a2, **kw2), reps=10)
+        ctx["k2_check"] = c2
+        log(f"[12a] the folded launch: K1 rows16 {tuple(a1[0].shape)} into "
+            f"{tuple(a1[2].shape)[0] + 1} rows, bit-identical to its plain version, "
+            f"{ms1:.4f} ms; K2 rel {tuple(a2[0].shape)} {ms2:.4f} ms, {k2_summary(c2)} "
+            f"(CUDA events, 10 launches one by one)")
+
+
+def p12_disarm(ctx: dict) -> None:
+    """(b) a NaN velocity at step 15 on member 2 alone: member 2 recovered
+    with one disarm, the others healthy with no events, all four
+    bit-equal to their clean solo runs; K1/K2 launched once a batched
+    step, the replayed block included."""
+    from repro_torch.core import health
+
+    fault = health.FaultSpec("nan_v", step=P12_FAULT_STEP)
+    _k12_zero()
+    outs, _, rep = _ensemble(ctx, fault=fault, fault_members=(2,))
+    l1, l2 = _k12_read()
+    want = rep.blocks * P12_BLOCK
+    rows = [(m.status, m.retries, [e.action for e in m.events]) for m in rep.members]
+    same = [_same_state(o, r) for o, r in zip(outs, _p12_solo_refs(ctx))]
+    log(f"[12b] nan_v at step {P12_FAULT_STEP} on member 2: (status, retries, events) "
+        f"{rows}; blocks {rep.blocks}; bit-equal to the clean solo runs {same}; K1/K2 "
+        f"launches {l1}/{l2} (want {want}: {rep.blocks} batched blocks, the replay included)")
+    expect = [("healthy", 0, [])] * P12_LANES
+    expect[2] = ("recovered", 1, ["disarm"])
+    if rows != expect or not all(same) or (l1, l2) != (want, want) or rep.blocks != 5:
+        raise AssertionError("phase 12 (b) disarm gate failed")
+
+
+def p12_quarantine(ctx: dict) -> None:
+    """(c) a persistent fault on member 1 (no disarm, one dt halving, no
+    record degrade): member 1 quarantined with a SimulationDiverged, the
+    other three bit-equal to their solo runs."""
+    from repro_torch.core import health, recovery
+
+    policy = recovery.GuardPolicy(block=P12_BLOCK, disarm_faults=False, max_dt_halvings=1,
+                                  degrade_records=False)
+    outs, _, rep = _ensemble(ctx, policy=policy,
+                             fault=health.FaultSpec("nan_v", step=P12_FAULT_STEP),
+                             fault_members=(1,))
+    m = rep.members[1]
+    same = [_same_state(o, r) for o, r in zip(outs, _p12_solo_refs(ctx))]
+    log(f"[12c] persistent nan_v on member 1: statuses {[x.status for x in rep.members]}; "
+        f"member 1 events {[(e.action, e.step) for e in m.events]}, parked at step "
+        f"{m.steps}, error {type(m.error).__name__}: {str(m.error)[:120]}; bit-equal to "
+        f"the solo runs {same}")
+    others = [i for i in range(P12_LANES) if i != 1]
+    if (m.status != "quarantined" or not isinstance(m.error, health.SimulationDiverged)
+            or any(rep.members[i].status != "healthy" or not same[i] for i in others)):
+        raise AssertionError("phase 12 (c) quarantine gate failed")
+
+
+def p12_engine(ctx: dict) -> None:
+    """(d) a LaneEngine of 3 slots takes four requests (targets 20, 40, 40,
+    20; the fourth admitted when the first is done): each done state is
+    bit-equal to its solo run."""
+    from repro_torch.core import ensemble, recovery, solver
+
+    policy = recovery.GuardPolicy(block=P12_ENGINE_BLOCK)
+    eng = ensemble.LaneEngine(ctx["cfg"], slots=3, policy=policy)
+    if "engine_solo" not in ctx:
+        ctx["engine_solo"] = [solver.simulate(eng.cfg, s, n)
+                              for s, n in zip(ctx["members"], P12_ENGINE_TARGETS)]
+    owner, done, queue = {}, {}, list(range(len(P12_ENGINE_TARGETS)))
+    while queue and eng.free_lanes:
+        r = queue.pop(0)
+        owner[eng.admit(ctx["members"][r], P12_ENGINE_TARGETS[r])] = r
+    kinds = []
+    while eng.live_lanes and eng.blocks < 16:
+        evs = eng.step_block()
+        kinds.append([(e.lane, e.kind, e.step) for e in evs])
+        for e in evs:
+            if e.kind in ("done", "diverged"):
+                done[owner.pop(e.lane)] = e
+        while queue and eng.free_lanes:
+            r = queue.pop(0)
+            owner[eng.admit(ctx["members"][r], P12_ENGINE_TARGETS[r])] = r
+    same = {r: e.kind == "done" and _same_state(e.state, ctx["engine_solo"][r])
+            for r, e in sorted(done.items())}
+    log(f"[12d] lane engine, 3 slots, blocks of {P12_ENGINE_BLOCK}, targets "
+        f"{P12_ENGINE_TARGETS}: {eng.blocks} blocks, (lane, event, step) per block "
+        f"{kinds}; done states bit-equal to their solo runs {same}")
+    if len(same) != len(P12_ENGINE_TARGETS) or not all(same.values()):
+        raise AssertionError("phase 12 (d) lane engine gate failed")
+
+
+def p12_resume(ctx: dict) -> None:
+    """(e) run_ensemble checkpointing every block stops after 20 steps; its
+    newest checkpoint is torn; the resume falls back to the block before
+    and finishes bit-equal to (a)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    ck = Path(ctx["ckpt_dir"]) / "p12"
+    if ck.exists():
+        shutil.rmtree(ck)
+    mgr = CheckpointManager(str(ck), keep=0)
+    _ensemble(ctx, nsteps=2 * P12_BLOCK, checkpoint=mgr, checkpoint_every=1)
+    steps = mgr.all_steps()
+    p = ck / f"step_{steps[-1]:08d}" / "arrays.npz"
+    p.write_bytes(p.read_bytes()[: p.stat().st_size // 2])
+    outs, stats, rep = _ensemble(ctx, checkpoint=mgr, checkpoint_every=0, resume=True)
+    mgr.close()
+    same = [_same_state(o, r) for o, r in zip(outs, ctx["batch"])]
+    log(f"[12e] checkpoints {steps}, the newest truncated; resumed from block "
+        f"{rep.resumed_from} (predecessor {rep.predecessor}), {rep.blocks} more blocks, "
+        f"steps {[s.steps for s in stats]}; bit-equal to (a) {same}")
+    if steps != [1, 2] or rep.resumed_from != 1 or not all(same):
+        raise AssertionError("phase 12 (e) resume gate failed")
+
+
+def p12_readings(ctx: dict) -> None:
+    """(f) readings, not gates: member-steps/s of the batch against the same
+    members one after another through run_timed, the busy share of a
+    batched block under torch.profiler, one batch snapshot's bytes and ms,
+    peak device memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.core import ensemble, recovery
+    from repro_torch.core.api import Simulation
+
+    member_steps = P12_LANES * P12_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        _ensemble(ctx)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    seq = {}
+    for label, guard in (("unguarded", None), ("guarded", ctx["policy"])):
+        wall = 0.0
+        for s in ctx["members"]:
+            _, rate = Simulation(cfg=ctx["mcfg"], state=s).run_timed(
+                P12_STEPS, observe_every=P12_BLOCK, guard=guard)
+            wall += P12_STEPS / rate
+        seq[label] = member_steps / wall
+    mcfg, policy = ctx["mcfg"], ctx["policy"]
+    carry = ensemble._batch_init(mcfg, ensemble.stack_states(ctx["members"]))
+    lanes = (np.ones(P12_LANES, np.float32), np.zeros(P12_LANES, bool),
+             np.ones(P12_LANES, bool), np.full(P12_LANES, 10 * P12_STEPS))
+    carry, _, _ = ensemble._ensemble_block(mcfg, carry, lanes, P12_BLOCK, policy, None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry, hw, _ = ensemble._ensemble_block(mcfg, carry, lanes, P12_BLOCK, policy, None)
+        hw.word.cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    device_us = sum(e.self_device_time_total for e in events)
+    snap_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        snap = recovery._host_snapshot(carry)
+        snap_ms.append(1e3 * (time.perf_counter() - t0))
+    nbytes = sum(np.asarray(a).nbytes for a in _flatten(snap).values())
+    log(gpu_line())
+    log(f"[12f] member-steps/s, {P12_LANES} members x {P12_STEPS} steps: the batch "
+        f"(run_ensemble, guarded, blocks of {P12_BLOCK}) {member_steps / min(batch_s):.3f} "
+        f"(best of 2; walls {[round(x, 3) for x in batch_s]} s); one after another through "
+        f"run_timed({P12_STEPS}, observe_every={P12_BLOCK}) unguarded "
+        f"{seq['unguarded']:.3f}, guarded {seq['guarded']:.3f}; ratio batch / unguarded "
+        f"{member_steps / min(batch_s) / seq['unguarded']:.3f}")
+    log(f"[12f] one batched block of {P12_BLOCK} steps (a rebuild of all {P12_LANES} lanes, "
+        f"the health word) under torch.profiler: wall {1e3 * wall:.3f} ms, device time "
+        f"{device_us / 1e3:.3f} ms, busy share {device_us / 1e6 / wall:.3f}, "
+        f"{sum(e.count for e in events)} device ops")
+    log(f"[12f] one batch snapshot {nbytes} bytes in {min(snap_ms):.3f} ms (best of 3; all "
+        f"{[round(x, 3) for x in snap_ms]}); max_memory_allocated of run_ensemble "
+        f"{peak} bytes ({peak / 2**30:.2f} GiB)")
+
+
+P12_GATES = (("(a) clean", p12_clean), ("(b) disarm", p12_disarm),
+             ("(c) quarantine", p12_quarantine), ("(d) lane engine", p12_engine),
+             ("(e) resume", p12_resume))
+
+
+def p12_planted_faults(ctx: dict) -> list:
+    """Faults planted by monkeypatching (this script only), each of which
+    its gate must fail: the folded neighbor ids not shifted by lane, so
+    every lane reads lane 0's cells -> (a); the lane select passing the
+    stepped row of a frozen lane -> (d); the rollback splicing another
+    lane's snapshot row -> (b). Returns the (fault, gate) pairs that
+    passed."""
+    from repro_torch.core import ensemble
+    from repro_torch.kernels import ops
+
+    def unshifted(domain, lanes, device):
+        nb = ops.nb_with_sentinel(domain, device)
+        c = nb.shape[0] - 1
+        body = torch.where(nb[:c] == c, lanes * c, nb[:c]).repeat(lanes, 1)
+        return torch.cat([body, torch.full_like(nb[:1], lanes * c)])
+
+    def other_row(carry, snap, i):
+        return ensemble._splice_lane(carry, i, ensemble._lane(snap, (i + 1) % P12_LANES))
+
+    plants = (
+        ("folded ids not shifted by lane", ops, dict(nb_lanes=unshifted), "(a) clean"),
+        ("lane select passes the stepped row", ensemble,
+         dict(_select_members=lambda pred, a, b: a), "(d) lane engine"),
+        ("rollback splices another lane's row", ensemble, dict(_restore_lane=other_row),
+         "(b) disarm"),
+    )
+    gates = dict(P12_GATES)
+    missed = []
+    for fault, mod, attrs, name in plants:
+        with _planted(mod, **attrs):
+            caught = not _p11_gate(ctx, name, gates[name], planted=True, phase=12)
+        log(f"[12] planted {fault}: {name} "
+            + ("failed, as it must" if caught else "PASSED: the fault was not caught"))
+        if not caught:
+            missed.append((fault, name))
+    return missed
+
+
+def phase12_ensemble() -> None:
+    """The ensemble on the card: gates (a)-(e), the readings (f), then the
+    three planted faults."""
+    import tempfile
+
+    from repro_torch.core import ensemble, recovery
+
+    cfg, st = p11_skinned_case(*p11_main_case())
+    policy = recovery.GuardPolicy(block=P12_BLOCK)
+    n = st.xn.shape[0]
+    t0 = time.perf_counter()
+    members = p12_members(cfg, st)
+    del st
+    log(f"[12] {P12_LANES} members of taylor_green (skinned: cells {cfg.domain.ncells}, skin "
+        f"{cfg.skin:.4e}, cap {cfg.cap(n)}) at N {n} each, {P12_LANES * n} particles; backend "
+        f"{cfg.resolved_backend}, records {cfg.policy.records}, dt {cfg.dt:.4e}, "
+        f"rebuild_every {P12_BLOCK}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = dict(cfg=cfg, mcfg=ensemble.member_config(cfg, policy), policy=policy,
+                   members=members, ckpt_dir=tmp)
+        failed = [name for name, fn in P12_GATES if not _p11_gate(ctx, name, fn, phase=12)]
+        if "(a) clean" not in failed:
+            p12_readings(ctx)
+            missed = p12_planted_faults(ctx)
+        else:
+            missed = []
+    log(f"[12] phase 12 in {time.perf_counter() - t0:.1f} s")
+    if failed or missed:
+        raise AssertionError(f"phase 12 failed: gates {failed}, planted faults not caught "
+                             f"{missed}")
+
+
 def phase6_profile(nsteps: int = 10) -> None:
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
@@ -2680,7 +3031,7 @@ def phase6_profile(nsteps: int = 10) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all but 6)")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of an earlier tree whose K1, K3-K5 and K7 phases 3, 8 "
@@ -2716,6 +3067,8 @@ def main() -> int:
         phase10_backends()
     if 11 in phases:
         phase11_guarded()
+    if 12 in phases:
+        phase12_ensemble()
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
     if 1 not in phases:
         log(gpu_line())

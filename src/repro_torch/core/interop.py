@@ -17,6 +17,9 @@ health guard's host snapshot and the tree a ``CheckpointManager`` of
 either package writes, under the same paths (``st/fluid/v``,
 ``binning/counts``, ...). The step counters travel as int32 0-d arrays,
 as JAX keeps them; JAX's uint32 ``flags`` come back as the port's int32.
+A stacked carry (``core/ensemble.py``: every tensor with a leading lane
+axis B, the counters host ``np.int64`` (B,) vectors) travels the same
+way, its counters as int32 (B,) arrays.
 ``FaultSpec`` and ``GuardPolicy`` travel as their field dicts
 (``dataclasses.asdict``), which the port's constructors take as they
 are: ``health.FaultSpec(**fields)``, ``recovery.GuardPolicy(**fields)``.
@@ -184,7 +187,8 @@ _HOST_INTS = ("rebuilds", "steps")
 def carry_to_numpy(carry: PersistentCarry) -> PersistentCarry:
     """A host copy of the carry: every tensor copied to a numpy array
     that owns its memory (never a view of the carry, which the solver
-    updates in place), the step counters as int32 0-d arrays."""
+    updates in place), the step counters as int32 arrays (0-d, or (B,)
+    for a stacked carry)."""
 
     def host(t):
         if isinstance(t, torch.Tensor):
@@ -198,12 +202,15 @@ def carry_from_numpy(tree: PersistentCarry, device) -> PersistentCarry:
     """A carry on ``device`` from a ``PersistentCarry`` of numpy leaves
     (:func:`carry_to_numpy`'s, or either package's checkpoint restored
     with one as template). Every tensor is a fresh copy, so the carry
-    owns its storage and the tree can restore again."""
+    owns its storage and the tree can restore again. The step counters
+    come back as host ints, or as ``np.int64`` (B,) vectors for a
+    stacked carry."""
     dev = torch.device(device)
     fields = {}
     for name, value in zip(PersistentCarry._fields, tree):
         if name in _HOST_INTS:
-            fields[name] = int(value)
+            fields[name] = (int(value) if np.ndim(value) == 0
+                            else np.asarray(value).astype(np.int64))
         elif name == "flags" and value is not None:
             fields[name] = torch.tensor(np.asarray(value).astype(np.int32), device=dev)
         else:

@@ -66,6 +66,24 @@ def _nb_table(domain: Domain, device: str) -> torch.Tensor:
     return torch.as_tensor(nb, device=device)
 
 
+def nb_lanes(domain: Domain, lanes: int, device) -> torch.Tensor:
+    """(B·C+1, M) int32 neighbor-cell ids of ``lanes`` lanes folded into
+    the cell axis: lane b's cells are rows b·C .. b·C + C - 1 with ids
+    ``nb + b·C``, and every out-of-domain slot (the sentinel C) points at
+    the one shared sentinel row B·C. Cached per (domain, B, device)."""
+    return _nb_lanes_table(domain, int(lanes), str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=8)
+def _nb_lanes_table(domain: Domain, lanes: int, device: str) -> torch.Tensor:
+    nb = cell_neighbor_ids(domain)
+    c = nb.shape[0]
+    shift = (np.arange(lanes, dtype=np.int64) * c)[:, None, None]
+    folded = np.where(nb[None] == c, lanes * c, nb[None] + shift).reshape(lanes * c, -1)
+    folded = np.concatenate([folded, np.full((1, nb.shape[1]), lanes * c)])
+    return torch.as_tensor(folded.astype(np.int32), device=device)
+
+
 def unpack_per_particle(table: torch.Tensor, binning: cells_lib.CellBinning) -> torch.Tensor:
     """Gather per-particle values out of a (C+1, cap, ...) table -> (N, ...)."""
     return cells_lib.from_cell_major(binning, table[: binning.table.shape[0]])
@@ -257,4 +275,130 @@ def rcll_force_particles(
     )
     drho = unpack_per_particle(drho_t, binning) * m_scale
     acc = unpack_per_particle(acc_t.transpose(1, 2), binning) * m_scale
+    return drho, acc
+
+
+def _check_lane_index_range(lanes: int, n: int, c_total: int, cap: int, width: int) -> None:
+    """Raise ValueError when the folded tables of ``lanes`` lanes would
+    pass the kernels' 32-bit indexing: ``(B·C + 1)·F·cap`` table
+    elements or ``B·N`` rows at or past 2^31 (``width`` is the widest
+    table's F)."""
+    if (lanes * c_total + 1) * width * cap > 2**31 - 1 or lanes * n > 2**31 - 1:
+        raise ValueError(
+            f"{lanes} lanes of N = {n}, C = {c_total}, cap = {cap}, F = {width} pass the "
+            "kernels' 32-bit indexing; run fewer lanes a batch")
+
+
+def _lane_rows(binning: cells_lib.CellBinning, starts: torch.Tensor) -> torch.Tensor:
+    """(B, N) int64 flat slot of each lane's particle in the folded (B·C,
+    cap) tables: row ``b·C + cell_id``, slot its rank in the cell. A
+    particle the table dropped (overflow) reads its lane's cell 0, slot
+    0, as :func:`cells.from_cell_major` reads a lane's slot 0."""
+    lanes, n = binning.cell_id.shape
+    c_total, cap = binning.table.shape[1:]
+    dev = starts.device
+    base = (torch.arange(lanes, device=dev) * c_total)[:, None]
+    cid = binning.cell_id.long() + base
+    slot = torch.arange(lanes * n, device=dev).reshape(lanes, n) - starts.long()[cid]
+    return torch.where(slot < cap, cid * cap + slot, base * cap)
+
+
+def rcll_force_lanes(
+    domain: Domain,
+    binning: cells_lib.CellBinning,  # every field with a leading lane axis B
+    rc: rcll_lib.RCLLState,  # (B, N, d) CURRENT state, packed indexing per lane
+    v: torch.Tensor,  # (B, N, d) f32
+    m: torch.Tensor,  # (B, N) f32
+    rho: torch.Tensor,  # (B, N) f32
+    *,
+    scheme: scheme_lib.Scheme,
+    records_dtype=torch.float32,
+    m_scale: torch.Tensor | None = None,  # (B,) f32
+    m_table: torch.Tensor | None = None,  # (B, C+1, cap)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rcll_force_particles` for B same-shape lanes through ONE K1
+    and ONE K2 launch, the lanes folded into the cell axis.
+
+    Each lane's packed rows are cell-sorted, so the stacked ``(B, N, F)``
+    record slabs viewed as ``(B·N, F)`` are cell-sorted lane after lane,
+    and the exclusive cumsum of the flattened ``(B·C,)`` counts starts
+    lane b's cells at ``b·N + local``: K1 writes ``(B·C+1, F, cap)``
+    tables whose last row is the one shared sentinel, and K2 reads lane
+    b's neighbor cells through :func:`nb_lanes`. REQUIRES each lane's
+    counts to sum to its N (the caller checks it once per rebuild).
+
+    Returns (drho (B, N), acc (B, N, d)), each lane's bit for bit those
+    of :func:`rcll_force_particles` on that lane alone: K2 walks each
+    row's neighbor cells in ``nb`` order and its slots in slot order, and
+    the plain versions reduce per row over the slot axis, so no sum
+    reaches across lanes.
+    """
+    lanes, n, d = rc.rel.shape
+    c_total, cap = binning.table.shape[1:]
+    rel_half = rc.rel.dtype.itemsize == 2
+    half = records_dtype.itemsize == 2
+    f16 = d * (1 + int(rel_half) + int(half))
+    f32 = 1 + d * (int(not rel_half) + int(not half))
+    _check_lane_index_range(lanes, n, c_total, cap, max(f16, f32, d))
+    dev = rc.rel.device
+    delta = domain.wrap_cell_delta(rc.cell_xy - binning.cell_xy)
+    if not half:
+        m_scale = torch.ones((lanes,), dtype=torch.float32, device=dev)
+    elif m_scale is None:
+        m_scale = torch.stack([fused.mass_scale(m[b]) for b in range(lanes)])
+    if m_table is None:
+        m_table = torch.stack([
+            mass_table(cells_lib.CellBinning(*(f[b] for f in binning)), m[b],
+                       records_dtype, m_scale[b]) for b in range(lanes)])
+
+    cols16 = [delta.to(torch.int16)]
+    cols32 = [(1.0 / rho).to(torch.float32)[..., None]]
+    fill32 = [1.0 / scheme.rho0]
+    if rel_half:
+        cols16.insert(0, rc.rel.view(torch.int16))
+    else:
+        cols32.append(rc.rel.to(torch.float32))
+        fill32 += [0.0] * d
+    if half:
+        cols16.append(v.to(records_dtype).view(torch.int16))
+    else:
+        cols32.append(v.to(torch.float32))
+        fill32 += [0.0] * d
+    counts = binning.counts.reshape(lanes * c_total).contiguous()
+    starts = cells_lib.exclusive_cumsum(counts)
+    t16, t32, _ = cell_pack.cell_tables(
+        torch.cat(cols16, dim=-1).reshape(lanes * n, f16).contiguous(),
+        torch.cat(cols32, dim=-1).reshape(lanes * n, f32).contiguous(),
+        starts,
+        counts,
+        torch.tensor(fill32, dtype=torch.float32, device=dev),
+        cap=cap,
+    )
+    o16 = d if rel_half else 0
+    o32 = 1 + (0 if rel_half else d)
+    if rel_half:
+        rel_t = t16[:, :d].contiguous().view(rc.rel.dtype)
+    else:
+        rel_t = t32[:, 1:1 + d].contiguous()
+    shift_t = t16[:, o16:o16 + d].contiguous()
+    if half:
+        v_t = t16[:, o16 + d:o16 + 2 * d].contiguous().view(records_dtype)
+    else:
+        v_t = t32[:, o32:o32 + d].contiguous()
+    inv_t = t32[:, 0].contiguous()
+    m_t = torch.cat([m_table[:, :c_total].reshape(lanes * c_total, cap),
+                     m_table[0, c_total:]])
+    occupied = torch.cat([counts.clamp(max=cap).to(torch.int32), counts.new_zeros(1)])
+    drho_t, acc_t = rcll_force.rcll_force(
+        rel_t, shift_t, v_t, m_t, inv_t, nb_lanes(domain, lanes, dev),
+        hc_phys=tuple(domain.cell_sizes),
+        h=domain.h,
+        dim=domain.dim,
+        scheme=scheme,
+        counts=occupied,
+    )
+    pos = _lane_rows(binning, starts)
+    drho = drho_t[:lanes * c_total].reshape(-1)[pos] * m_scale[:, None]
+    acc = (acc_t[:lanes * c_total].transpose(1, 2).reshape(-1, d)[pos]
+           * m_scale[:, None, None])
     return drho, acc

@@ -22,8 +22,8 @@ from repro_torch.kernels import sph_gradient as tsg
 from repro_torch.core import nnps as tnnps
 from repro_torch.core import scheme as tsch
 from repro_torch.kernels import ops as tops
-from test_torch_helpers import (DAM, STORAGE, WCSPH, make_nnps_tiles, make_tiles,  # noqa: F401
-                                one_torch_thread)
+from test_torch_helpers import (DAM, STORAGE, WCSPH, make_lanes, make_nnps_tiles,  # noqa: F401
+                                make_tiles, one_torch_thread)
 
 
 @pytest.fixture
@@ -204,6 +204,55 @@ def test_rcll_force_kernel_walks_massless_particles(cuda_device, dim, scheme, re
     assert not torch.equal(by_mass, kw["counts"])
     with pytest.raises(AssertionError, match="disagrees"):
         trf.check_against_plain(args, dict(kw, counts=by_mass))
+
+
+def _force_lanes_vs_solo(monkeypatch, dev, dim, scheme, records):
+    """ops.rcll_force_lanes over 3 lanes (one with massless particles) is
+    ONE K1 and ONE K2 call, each lane bit for bit the solo call of
+    rcll_force_particles, and the folded calls pass their kernels' checks
+    against the plain versions. Returns the folded K2 check."""
+    dom, b, rc, v, m, rho, sch, rdt = make_lanes(90 + dim, dim, scheme, records,
+                                                 n=8000 if dim == 2 else 6000)
+    on = lambda t: t.to(dev)
+    b, rc = (type(x)(*(on(f) for f in x)) for x in (b, rc))
+    v, m, rho = on(v), on(m), on(rho)
+    first = {}
+
+    def capture(key, fn):
+        def run(*a, **kw):
+            first.setdefault(key, (a, kw))
+            return fn(*a, **kw)
+        return run
+
+    monkeypatch.setattr(tcp, "cell_tables", capture("k1", tcp.cell_tables))
+    monkeypatch.setattr(trf, "rcll_force", capture("k2", trf.rcll_force))
+    before = (tcp._WRAPPER.launches, trf._WRAPPER.launches)
+    drho, acc = tops.rcll_force_lanes(dom, b, rc, v, m, rho, scheme=sch, records_dtype=rdt)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        assert (tcp._WRAPPER.launches, trf._WRAPPER.launches) == (before[0] + 1, before[1] + 1)
+    assert first["k2"][0][0].shape[0] == 3 * (b.counts.shape[1]) + 1
+    for lane in range(3):
+        lb = type(b)(*(f[lane] for f in b))
+        lrc = type(rc)(*(f[lane] for f in rc))
+        d1, a1 = tops.rcll_force_particles(dom, lb, lrc, v[lane], m[lane], rho[lane],
+                                           scheme=sch, records_dtype=rdt)
+        assert torch.equal(drho[lane], d1) and torch.equal(acc[lane], a1), lane
+    tcp.check_against_plain(*first["k1"])
+    return trf.check_against_plain(*first["k2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,scheme,records", [(2, WCSPH, "fp16"), (2, DAM, "fp32"),
+                                                (3, WCSPH, "fp16")])
+def test_folded_force_lanes_bit_identical_to_solo_launches(cuda_device, monkeypatch, dim,
+                                                           scheme, records):
+    _force_lanes_vs_solo(monkeypatch, cuda_device, dim, scheme, records)
+
+
+def test_folded_force_lanes_plain_versions_on_cpu(monkeypatch):
+    """The same check on the CPU, where the wrappers take their plain versions."""
+    _force_lanes_vs_solo(monkeypatch, torch.device("cpu"), 2, WCSPH, "fp16")
 
 
 @pytest.mark.cuda

@@ -109,3 +109,39 @@ def make_nnps_tiles(seed, dim, n, storage="fp16", periodic=False, cell_factor=1.
     kw = dict(weights=tuple(dom.cell_weights), r_cell=tnnps.rcll_radius_cell_units(dom),
               hc_phys=tuple(dom.cell_sizes), h=dom.h, dim=dim)
     return tabs, kw
+
+
+def make_lanes(seed, dim, scheme, records, n, lanes=3, massless_lane=1):
+    """CPU per-particle inputs of ``ops.rcll_force_lanes``: ``lanes``
+    random clouds of ``n`` particles in one domain, each packed at one
+    capacity and advanced by a fraction of a Verlet skin (so some cell
+    shifts are non-zero), lane ``massless_lane`` with every 97th particle
+    massless. Returns (domain, binning, rc, v, m, rho, scheme, records
+    dtype), every tensor with a leading lane axis."""
+    rng = np.random.default_rng(seed)
+    ds = (1.0 / n) ** (1.0 / dim)
+    dom = td.Domain(lo=(0.0,) * dim, hi=(1.0,) * dim, h=1.2 * ds, cell_factor=1.5,
+                    periodic=(True,) + (False,) * (dim - 1))
+    cap = tcells.robust_capacity(dom, ds, n) + 8
+    skin_norm = 2.0 * 0.5 * dom.radius / dom.h_d
+    parts = []
+    for b in range(lanes):
+        x = torch.as_tensor(rng.uniform(0, 1, (n, dim)).astype(np.float32))
+        ps = trcll.pack_state(dom, trcll.init_state(dom, dom.normalize(x)), cap)
+        assert int(ps.packing.binning.overflow) == 0
+        step = torch.as_tensor(rng.uniform(-1, 1, (n, dim)).astype(np.float32))
+        rc = trcll.advance(dom, ps.rc, step * (0.2 * skin_norm))
+        v = torch.as_tensor((0.3 * rng.normal(size=(n, dim))).astype(np.float32))
+        rho = torch.as_tensor((1.0 + 0.01 * rng.normal(size=n)).astype(np.float32))
+        m = torch.full((n,), ds**dim)
+        if b == massless_lane:
+            m[::97] = 0.0
+        parts.append((ps.packing.binning, rc, v, m, rho))
+
+    def stack(xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        return type(xs[0])(*(torch.stack(f) for f in zip(*xs)))
+
+    binning, rc, v, m, rho = (stack(list(col)) for col in zip(*parts))
+    return dom, binning, rc, v, m, rho, tsch.Scheme(**scheme), STORAGE[records]
