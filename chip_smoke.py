@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,10   # build + the list backends and absolute algos
     python3 chip_smoke.py --phases 1,11   # build + the guarded main path (health guard)
     python3 chip_smoke.py --phases 1,12   # build + the ensemble (4 members x 1M particles)
+    python3 chip_smoke.py --phases 1,13   # build + SPH serving and the CLI at 1M particles
     python3 chip_smoke.py --phases 1,9    # build + llama3.2-3b served (K6, K7)
     python3 chip_smoke.py --phases 1,9 --parent build/parent  # K7 beside an earlier tree's
     python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1, K3, K4, K5 beside it
@@ -157,7 +158,40 @@ Phases (each prints its own lines and raises on failure):
      Then three faults planted by monkeypatching: the folded neighbor ids
      not shifted by lane -> (a), the lane select passing a frozen lane's
      stepped row -> (d), the rollback splicing another lane's snapshot
-     row -> (b).
+     row -> (b);
+ 13. SPH serving and the scenario CLI: taylor_green at N = 1,048,576 (fp16
+     records, kernel backend, blocks of 10) over real sockets on
+     127.0.0.1, each gate raising on failure: (a) an in-process
+     ``SimServer`` (4 slots) takes three healthy requests of 20, 30 and 40
+     steps and one poisoned (NaN velocity at step 3) from four concurrent
+     clients: each DONE's ``state_npz`` has the JAX server's keys and
+     dtypes and is bit-equal to its solo ``run_guarded`` under
+     ``member_config``, the poisoned one DIVERGED (nan_v, halve_dt,
+     quarantine last), K1 and K2 launched once a batched step of the
+     bucket (its blocks x 10) and the run's folded K1/K2 launch held
+     against their plain versions, every frame under ``MAX_FRAME``; (b) a
+     server with a checkpoint directory drains a 40-step request after two
+     blocks (RETRY_AFTER, a token, step 20) and a new server resumes the
+     token (ACCEPTED resumed) to a DONE bit-equal to the
+     uninterrupted run; (c) ``python -m repro_torch.sph serve --chaos kill``
+     as a subprocess with engine workers on the card: a 60-step request
+     whose worker is SIGKILLed after two blocks and a sibling bucket (N =
+     65,536, 40 steps) sent after the kill, both DONE bit-equal to their
+     solo runs, a recovering event and every block's OBS for the first,
+     neither for the second, worker_restarts >= 1, recovery_s > 0, SIGTERM
+     exit 0; (d) ``python -m repro_torch.sph run ... --n 1048576 --time
+     --json`` exits 0 with the JAX document's schema and keys, backend
+     "kernel", and ``list --names`` prints JAX's four cases; (e) readings:
+     ms to ACCEPTED, first OBS and DONE per request, served member-steps/s
+     against ``run_ensemble``, the state_npz bytes and encode/decode ms,
+     the workers' per-block lane-checkpoint ms and spawn to first progress,
+     recovery_s, peak memory, the CLI's steps/s, and where (a)'s wall
+     went (the engine thread's case build, admissions, blocks, encode,
+     json.dumps and sendall; the clients' frame reads and parse). Then
+     three faults planted by monkeypatching: ``serve.encode_state``
+     widening fp16 leaves to fp32 -> (a), ``SimServer._dispatch``
+     answering the neighboring lane's event -> (a), ``_admit_resume``
+     admitting the checkpointed row as if at step 0 -> (b).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -221,17 +255,32 @@ def wrapper(key: str):
     return getattr(_kernel_modules()[mod], name)
 
 
+def _map_tensors(x, fn):
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map_tensors(v, fn) for v in x)
+    if isinstance(x, dict):
+        return {k: _map_tensors(v, fn) for k, v in x.items()}
+    return x
+
+
 @contextlib.contextmanager
-def capture_kernel_inputs(store: dict):
+def capture_kernel_inputs(store: dict, first_on_host: bool = False):
     """Record the arguments of the next wrapper calls of each kernel (the
-    calls still go through the original wrappers and their counters)."""
+    calls still go through the original wrappers and their counters): the
+    last call's, or with ``first_on_host`` a host copy of the first call's
+    (which later steps cannot overwrite)."""
     saved = []
     for mod_name, name, key in WRAPPERS:
         mod = _kernel_modules()[mod_name]
         orig = getattr(mod, name)
 
         def cap(*args, _orig=orig, _key=key, **kw):
-            store[_key] = (args, kw)
+            if not first_on_host:
+                store[_key] = (args, kw)
+            elif _key not in store:
+                store[_key] = _map_tensors((args, kw), lambda t: t.to("cpu", copy=True))
             return _orig(*args, **kw)
 
         saved.append((mod, name, orig))
@@ -2978,6 +3027,584 @@ def phase12_ensemble() -> None:
                              f"{missed}")
 
 
+# --------------------------------------------------------------------------
+# phase 13: SPH serving and the scenario CLI
+# --------------------------------------------------------------------------
+P13_DEVICE = "cuda"
+P13_N = 1_048_576  # taylor_green at resolve_ds(n) = 1/1024
+P13_BLOCK = 10
+#: (a)'s healthy requests: different lengths, so a lane mix-up shows; the
+#: second names the kernel backend "pallas", as a JAX client does.
+P13_STEPS = (20, 30, 40)
+P13_POISON_STEP = 3
+P13_DRAIN_STEPS = 40  # (b): drained after two blocks
+P13_CHAOS_STEPS = 60  # (c): the killed bucket
+P13_SIBLING_N = 65_536  # (c): the sibling bucket
+P13_SIBLING_STEPS = 40
+P13_CLI_STEPS = 50
+P13_TIMEOUT = 600.0
+#: ``python -m repro.sph list --names`` of the JAX package.
+P13_CASES = ["cavity", "dam_break", "poiseuille", "taylor_green"]
+#: The keys and dtypes of the JAX server's ``state_npz`` for taylor_green.
+P13_STATE_DTYPES = {"xn": "float32", "rc/cell_xy": "int32", "rc/rel": "float16",
+                    "fluid/v": "float32", "fluid/rho": "float32", "fluid/m": "float32",
+                    "fixed": "bool", "t": "float32", "kind": "int8"}
+#: The keys of the JAX CLI's ``run --json`` document (an unguarded run),
+#: in its order; tests/test_torch_sph_cli.py holds the port's to JAX's.
+P13_RUN_KEYS = ["schema", "case", "n", "ds", "dt", "backend", "records", "nsteps",
+                "observe_every", "guard", "inject", "status", "exit", "observables", "stats",
+                "steps_per_sec", "validation"]
+
+
+def _p13_req(nsteps: int, n: int | None = None, **kw) -> dict:
+    return {"case": "taylor_green", "n": n or P13_N, "nsteps": nsteps, "records": "fp16",
+            "backend": "kernel", **kw}
+
+
+def _p13_env() -> dict:
+    import os
+
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+
+def _p13_solo(ctx: dict, nsteps: int, n: int | None = None):
+    """A request's reference: the solo guarded run under the engine's
+    member config, on the card (computed once per (n, nsteps))."""
+    from repro_torch.core import ensemble, recovery
+    from repro_torch.core.api import Simulation
+    from repro_torch.sph import serve
+
+    key = (n or P13_N, nsteps)
+    if key not in ctx["solo"]:
+        sim = Simulation.from_case("taylor_green", device=P13_DEVICE,
+                                   **serve.build_overrides(_p13_req(nsteps, n)))
+        mcfg = ensemble.member_config(sim.cfg, ctx["policy"])
+        state, _, report, _ = recovery.run_guarded(mcfg, sim.state, nsteps, ctx["policy"])
+        if report.recovered:
+            raise AssertionError(f"phase 13: the solo reference ({n}, {nsteps}) recovered")
+        ctx["solo"][key] = serve.state_arrays(state)
+        if key[0] == P13_N:
+            ctx["solo_state"] = state  # (e)'s state_npz reading
+    return ctx["solo"][key]
+
+
+def _p13_same(done: dict, want: dict) -> tuple[bool, bool]:
+    """(keys and dtypes as JAX's, bit-equal to ``want``) of a DONE frame."""
+    from repro_torch.sph import client
+
+    got = client.final_state(done)
+    layout = {k: str(v.dtype) for k, v in got.items()} == P13_STATE_DTYPES
+    same = set(got) == set(want) and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want)
+    return layout, same
+
+
+def _p13_request(port: int, req: dict, out: dict, rid: str) -> None:
+    """One request through the port's client; its frames, the ms to
+    ACCEPTED, the first OBS and the terminal frame, and the largest frame."""
+    from repro_torch.sph import client
+
+    t0 = time.perf_counter()
+    rec = {"frames": [], "max_frame": 0, "term": None}
+    out[rid] = rec
+    try:
+        for f in client.request("127.0.0.1", port, req, timeout=P13_TIMEOUT):
+            ms = 1e3 * (time.perf_counter() - t0)
+            rec["frames"].append(f)
+            rec["max_frame"] = max(rec["max_frame"], len(json.dumps(f)))
+            key = {"accepted": "accepted_ms", "obs": "first_obs_ms"}.get(f["type"], "end_ms")
+            rec.setdefault(key, ms)
+            if f["type"] in client.TERMINAL:
+                rec["term"] = f
+    except (OSError, ValueError) as e:
+        rec["error"] = f"{type(e).__name__}: {e}"
+
+
+#: The name prefix of _p13_fire's client threads (_p13_parts tells the
+#: clients' frame reads from the server's by it).
+P13_CLIENT = "p13-client-"
+
+
+@contextlib.contextmanager
+def _p13_parts(parts: dict):
+    """Record the wall ms of the in-process server's parts while (a) runs,
+    into ``parts`` ({part: [ms, ...]}): on the engine thread the case
+    build, the lane admissions, the blocks, ``encode_state``, the frame
+    sends (split into ``json.dumps`` and ``sendall``) and each whole
+    ``_tick``; on the client threads each frame read, split into the bytes
+    off the socket and the parse. No synchronization is added: a block
+    already waits for its health word."""
+    import threading
+
+    from repro_torch.core import ensemble
+    from repro_torch.sph import client, serve
+
+    def is_client():
+        return threading.current_thread().name.startswith(P13_CLIENT)
+
+    def timed(key, fn, side=None):
+        def run(*args, **kw):
+            if side is not None and is_client() != (side == "client"):
+                return fn(*args, **kw)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                parts.setdefault(key, []).append(1e3 * (time.perf_counter() - t0))
+        return run
+
+    def send_frame(sock, obj):  # serve.send_frame's two lines, timed apart
+        if is_client():
+            return orig_send(sock, obj)
+        t0 = time.perf_counter()
+        payload = json.dumps(obj).encode()
+        t1 = time.perf_counter()
+        sock.sendall(serve._LEN.pack(len(payload)) + payload)
+        parts.setdefault("json.dumps", []).append(1e3 * (t1 - t0))
+        parts.setdefault("sendall", []).append(1e3 * (time.perf_counter() - t1))
+
+    orig_send = serve.send_frame
+    with _planted(serve.SimServer, _build=timed("case build", serve.SimServer._build),
+                  _tick=timed("_tick", serve.SimServer._tick)), \
+            _planted(ensemble.LaneEngine, admit=timed("admit", ensemble.LaneEngine.admit),
+                     step_block=timed("step_block", ensemble.LaneEngine.step_block)), \
+            _planted(serve, encode_state=timed("encode_state", serve.encode_state),
+                     send_frame=send_frame,
+                     _recv_exact=timed("client bytes", serve._recv_exact, "client")), \
+            _planted(client, recv_frame=timed("client frame", client.recv_frame, "client")):
+        yield parts
+
+
+def _p13_fire(srv, reqs: dict) -> dict:
+    """Fire ``reqs`` ({rid: request}) at an in-process server at once and
+    wait until every client is answered or the engine has sat idle with
+    nothing queued for 2 s (a request whose lane was answered under
+    another's name waits forever otherwise); then drain the server."""
+    import threading
+
+    out: dict = {}
+    threads = [threading.Thread(target=_p13_request, args=(srv.port, r, out, rid),
+                                name=f"{P13_CLIENT}{rid}") for rid, r in reqs.items()]
+    for t in threads:
+        t.start()
+    t0, idle_since = time.perf_counter(), None
+    while any(t.is_alive() for t in threads) and time.perf_counter() - t0 < P13_TIMEOUT:
+        idle = (srv.buckets and not srv.pending
+                and not any(e.live_lanes for e in list(srv.buckets.values())))
+        idle_since = (idle_since or time.perf_counter()) if idle else None
+        if idle_since is not None and time.perf_counter() - idle_since > 2.0:
+            break
+        time.sleep(0.02)
+    wall = time.perf_counter() - t0
+    srv.request_drain()
+    srv.join(120)
+    for t in threads:
+        t.join(60)
+    out["_wall_s"] = wall
+    return out
+
+
+def p13_inprocess(ctx: dict) -> None:
+    """(a) an in-process SimServer (4 slots, on the card): three healthy
+    requests of 20, 30 and 40 steps and one poisoned (NaN velocity at
+    step 3), from four concurrent clients over real sockets. Each DONE's
+    state_npz has JAX's keys and dtypes and is bit-equal to its solo run;
+    the poisoned one ends DIVERGED (nan_v, halve_dt, quarantine last); K1
+    and K2 launch once per batched step of the bucket, and the run's first
+    folded launch agrees with the plain versions; every frame is under
+    MAX_FRAME."""
+    from repro_torch.kernels import rcll_force
+    from repro_torch.sph import serve
+
+    want = {n: _p13_solo(ctx, n) for n in P13_STEPS}
+    reqs = {f"h{n}": _p13_req(n, observe=True, return_state=True, request_id=f"h{n}")
+            for n in P13_STEPS}
+    reqs[f"h{P13_STEPS[1]}"]["backend"] = "pallas"
+    reqs["poison"] = _p13_req(P13_STEPS[-1], observe=True, request_id="poison",
+                              inject={"kind": "nan", "step": P13_POISON_STEP})
+    srv = serve.SimServer(slots=4, queue=8, policy=ctx["policy"], device=P13_DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    store: dict = {}
+    parts: dict = {}
+    _k12_zero()
+    with capture_kernel_inputs(store, first_on_host=True), _p13_parts(parts):
+        out = _p13_fire(srv.start(), reqs)
+    l1, l2 = _k12_read()
+    peak = torch.cuda.max_memory_allocated()
+    # the folded K1/K2 launch of this run against the plain versions on the
+    # same inputs: the bucket's first batched step, whose four slots are
+    # all finite (a later step folds the poisoned lane's NaN rows in)
+    try:
+        a1, kw1 = _map_tensors(store["k1"], lambda t: t.to(P13_DEVICE))
+        a2, kw2 = _map_tensors(store["k2"], lambda t: t.to(P13_DEVICE))
+        check_k1(a1, kw1)
+        c2 = rcll_force.check_against_plain(a2, kw2)
+        folded = (f"K1 rows16 {tuple(a1[0].shape)} into {tuple(a1[2].shape)[0] + 1} rows, "
+                  f"bit-identical to its plain version; K2 rel {tuple(a2[0].shape)}, "
+                  f"{k2_summary(c2)}")
+    except (AssertionError, KeyError) as e:
+        folded = f"FAILED: {type(e).__name__}: {e}"
+    blocks = sum(e.blocks for e in srv.buckets.values())
+    rows, ok = [], len(srv.buckets) == 1 and (l1, l2) == (blocks * P13_BLOCK,) * 2 and blocks
+    for n in P13_STEPS:
+        rec = out[f"h{n}"]
+        term = rec["term"] or {}
+        obs = [f["step"] for f in rec["frames"] if f["type"] == "obs"]
+        layout, same = _p13_same(term, want[n]) if term.get("type") == "done" else (False, False)
+        good = (term.get("steps") == n and layout and same
+                and obs == list(range(P13_BLOCK, n, P13_BLOCK)))
+        rows.append((f"h{n}", term.get("type"), term.get("steps"), obs, layout, same))
+        ok = ok and good
+    poison = out["poison"]["term"] or {}
+    actions = [e["action"] for e in poison.get("events", [])]
+    ok = ok and (poison.get("type") == "diverged" and "nan_v" in poison.get("checks", [])
+                 and "halve_dt" in actions and actions[-1:] == ["quarantine"])
+    biggest = max(r["max_frame"] for k, r in out.items() if k != "_wall_s")
+    ok = ok and biggest < serve.MAX_FRAME and not folded.startswith("FAILED")
+    log(f"[13a] in-process SimServer, 4 slots, blocks of {P13_BLOCK}: (request, terminal, "
+        f"steps, OBS steps, JAX keys/dtypes, bit-equal to solo) {rows}; poisoned: "
+        f"{poison.get('type')} at step {poison.get('step')}, checks {poison.get('checks')}, "
+        f"events {actions}; {len(srv.buckets)} bucket, {blocks} blocks; K1/K2 launches "
+        f"{l1}/{l2} (want {blocks * P13_BLOCK} each, once a batched step); largest frame "
+        f"{biggest} bytes (MAX_FRAME {serve.MAX_FRAME}); the folded launch: {folded}")
+    ctx["a"] = dict(out=out, peak=peak, launches=(l1, l2), blocks=blocks, parts=parts)
+    if not ok:
+        raise AssertionError("phase 13 (a) in-process gate failed")
+
+
+def p13_drain(ctx: dict) -> None:
+    """(b) a SimServer with a checkpoint directory takes a 40-step request
+    and drains after two blocks: RETRY_AFTER with a token at step 20. A
+    new SimServer on the same directory takes the token (ACCEPTED:
+    resumed) and its DONE is bit-equal to the uninterrupted 40-step solo
+    run."""
+    import tempfile
+
+    from repro_torch.sph import client, serve
+
+    class DrainAfterTwoBlocks(serve.SimServer):
+        def _tick(self):
+            super()._tick()
+            if any(e.blocks >= 2 for e in self.buckets.values()):
+                self.request_drain()
+
+    want = _p13_solo(ctx, P13_DRAIN_STEPS)
+    with tempfile.TemporaryDirectory() as ck:
+        srv = DrainAfterTwoBlocks(slots=1, queue=4, policy=ctx["policy"], checkpoint_dir=ck,
+                                  device=P13_DEVICE).start()
+        _, term = client.run_request("127.0.0.1", srv.port,
+                                     _p13_req(P13_DRAIN_STEPS, return_state=True),
+                                     timeout=P13_TIMEOUT)
+        srv.join(120)
+        term = term or {}
+        srv2 = serve.SimServer(slots=1, queue=4, policy=ctx["policy"], checkpoint_dir=ck,
+                               device=P13_DEVICE).start()
+        frames, done = client.run_request(
+            "127.0.0.1", srv2.port, {"resume_token": term.get("token") or "none",
+                                     "return_state": True}, timeout=P13_TIMEOUT)
+        srv2.request_drain()
+        srv2.join(120)
+    acc = frames[0] if frames else {}
+    done = done or {}
+    layout, same = _p13_same(done, want) if done.get("type") == "done" else (False, False)
+    log(f"[13b] drained after two blocks: {term.get('type')}, token {term.get('token')}, "
+        f"steps_done {term.get('steps_done')}; resumed by a new server: ACCEPTED resumed "
+        f"{acc.get('resumed')}, {done.get('type')} at step "
+        f"{done.get('steps')}, JAX keys/dtypes {layout}, bit-equal to the uninterrupted run "
+        f"{same}")
+    if not (term.get("type") == "retry_after" and term.get("token")
+            and term.get("steps_done") == 2 * P13_BLOCK and acc.get("resumed") is True
+            and done.get("steps") == P13_DRAIN_STEPS and layout and same):
+        raise AssertionError("phase 13 (b) drain/resume gate failed")
+
+
+def p13_frontend(ctx: dict) -> None:
+    """(c) ``python -m repro_torch.sph serve --chaos kill`` as a subprocess
+    (engine workers on the card): a 60-step request at N = 1,048,576;
+    when the chaos kill has fired, a sibling request in another bucket
+    (N = 65,536, 40 steps). Both DONE bit-equal to their solo runs; the
+    killed bucket's stream has a recovering event and OBS at every block
+    boundary, the sibling's neither a recovering event nor a gap;
+    worker_restarts >= 1, recovery_s > 0; SIGTERM exits 0, drained
+    cleanly."""
+    import os
+    import signal
+    import tempfile
+    import threading
+
+    from repro_torch.sph import client
+
+    want = _p13_solo(ctx, P13_CHAOS_STEPS)
+    want_sib = _p13_solo(ctx, P13_SIBLING_STEPS, P13_SIBLING_N)
+    torch.cuda.empty_cache()
+    lines: list = []
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.sph", "serve", "--chaos", "kill",
+             "--checkpoint", ck, "--block", str(P13_BLOCK), "--slots", "2", "--port", "0",
+             "--device", P13_DEVICE],
+            env=_p13_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        try:
+            port = None
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if line.startswith("# serving on"):
+                    port = int(line.split()[3].split(":")[1])
+                    break
+            if port is None:
+                raise AssertionError("phase 13 (c): no banner:\n" + "\n".join(lines[-20:]))
+            threading.Thread(target=lambda: lines.extend(ln.rstrip() for ln in proc.stdout),
+                             daemon=True).start()
+            banner_s = time.perf_counter() - t0
+
+            def stats():
+                return client.run_request("127.0.0.1", port, {"op": "stats"}, timeout=60)[1]
+
+            ta = threading.Thread(target=_p13_request, args=(port, _p13_req(
+                P13_CHAOS_STEPS, observe=True, return_state=True), out, "killed"))
+            ta.start()
+            deadline = time.perf_counter() + P13_TIMEOUT
+            while not stats()["chaos_fired"] and time.perf_counter() < deadline:
+                time.sleep(0.05)
+            tb = threading.Thread(target=_p13_request, args=(port, _p13_req(
+                P13_SIBLING_STEPS, P13_SIBLING_N, observe=True, return_state=True), out,
+                "sibling"))
+            tb.start()
+            ta.join(P13_TIMEOUT)
+            tb.join(P13_TIMEOUT)
+            st = stats()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=180)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=60)
+    time.sleep(0.5)  # the pump thread takes the last lines
+    res = {}
+    for rid, ref, nsteps in (("killed", want, P13_CHAOS_STEPS),
+                             ("sibling", want_sib, P13_SIBLING_STEPS)):
+        rec = out.get(rid, {"frames": [], "term": None})
+        term = rec["term"] or {}
+        obs = [f["step"] for f in rec["frames"] if f["type"] == "obs"]
+        recovering = sum(f.get("action") == "recovering" for f in rec["frames"])
+        layout, same = _p13_same(term, ref) if term.get("type") == "done" else (False, False)
+        res[rid] = (term.get("type"), term.get("steps") == nsteps, sorted(set(obs)),
+                    recovering, layout, same)
+    drained = any("# drained cleanly" in ln for ln in lines)
+    log(f"[13c] frontend + workers on the card (--chaos kill, slots 2, blocks of "
+        f"{P13_BLOCK}): (terminal, steps, OBS steps, recovering events, JAX keys/dtypes, "
+        f"bit-equal to solo) {res}; worker_restarts {st['worker_restarts']}, recovered_lanes "
+        f"{st['recovered_lanes']}, recovery_s {st['recovery_s']}; SIGTERM exit {rc}, drained "
+        f"cleanly {drained}")
+    ctx["c"] = dict(out=out, stats=st, banner_s=banner_s)
+    k, s = res["killed"], res["sibling"]
+    blocks = lambda n: list(range(P13_BLOCK, n, P13_BLOCK))
+    if not (k[0] == "done" and k[1] and k[2] == blocks(P13_CHAOS_STEPS) and k[3] >= 1
+            and k[4] and k[5] and s[0] == "done" and s[1] and s[3] == 0 and s[4] and s[5]
+            and [f["step"] for f in out["sibling"]["frames"] if f["type"] == "obs"]
+            == blocks(P13_SIBLING_STEPS)
+            and st["worker_restarts"] >= 1 and (st["recovery_s"] or 0) > 0
+            and rc == 0 and drained):
+        log("\n".join(f"[13c]   {ln}" for ln in lines[-40:]))
+        raise AssertionError("phase 13 (c) frontend gate failed")
+
+
+def p13_cli(ctx: dict) -> None:
+    """(d) ``python -m repro_torch.sph run taylor_green --n 1048576 --nsteps
+    50 --observe-every 10 --time --json`` exits 0 with JAX's schema and
+    keys, backend "kernel", status "ok"; ``list --names`` prints JAX's four
+    case names."""
+    cmd = [sys.executable, "-m", "repro_torch.sph"]
+    run = subprocess.run(cmd + ["run", "taylor_green", "--n", str(P13_N), "--nsteps",
+                                str(P13_CLI_STEPS), "--observe-every", str(P13_BLOCK),
+                                "--time", "--json", "--device", P13_DEVICE],
+                         env=_p13_env(), capture_output=True, text=True, timeout=600)
+    names = subprocess.run(cmd + ["list", "--names"], env=_p13_env(), capture_output=True,
+                           text=True, timeout=300)
+    try:
+        doc = json.loads(run.stdout)
+    except json.JSONDecodeError:
+        doc = {}
+    log(f"[13d] run --json: exit {run.returncode}, schema {doc.get('schema')}, keys as "
+        f"JAX's {list(doc) == P13_RUN_KEYS}, n {doc.get('n')}, backend {doc.get('backend')}, "
+        f"status {doc.get('status')}, steps {doc.get('stats')}, steps_per_sec "
+        f"{doc.get('steps_per_sec')}; list --names: exit {names.returncode}, "
+        f"{names.stdout.split()}")
+    ctx["d"] = doc
+    if not (run.returncode == 0 and doc.get("schema") == "repro.sph.run/1"
+            and list(doc) == P13_RUN_KEYS and doc.get("backend") == "kernel"
+            and doc.get("status") == "ok" and doc.get("n") == P13_N
+            and names.returncode == 0 and names.stdout.split() == P13_CASES):
+        log(run.stderr[-3000:])
+        raise AssertionError("phase 13 (d) CLI gate failed")
+
+
+def p13_readings(ctx: dict) -> None:
+    """(e) readings, not gates: per request the ms to ACCEPTED, the first
+    OBS and the terminal frame; served member-steps/s of (a) against the
+    same members through run_ensemble; the state_npz bytes and its encode
+    and decode ms; the workers' per-block lane-checkpoint ms and spawn to
+    first progress; recovery_s; the in-process server's peak memory; the
+    CLI's steps/s."""
+    from repro_torch.core import ensemble
+    from repro_torch.core.api import Simulation
+    from repro_torch.sph import serve
+
+    log(gpu_line())
+    a, c = ctx["a"], ctx["c"]
+    for name, out in (("13a", a["out"]), ("13c", c["out"])):
+        for rid, rec in sorted((k, v) for k, v in out.items() if k != "_wall_s"):
+            log(f"[{name}e] {rid}: ACCEPTED {rec.get('accepted_ms', float('nan')):.1f} ms, "
+                f"first OBS {rec.get('first_obs_ms', float('nan')):.1f} ms, "
+                f"{(rec['term'] or {}).get('type')} {rec.get('end_ms', float('nan')):.1f} ms "
+                f"after the request was sent; largest frame {rec['max_frame']} bytes")
+    served = sum(P13_STEPS) / a["out"]["_wall_s"]
+    req = _p13_req(P13_STEPS[-1])
+    sim = Simulation.from_case("taylor_green", device=P13_DEVICE, **serve.build_overrides(req))
+    mcfg = ensemble.member_config(sim.cfg, ctx["policy"])
+    k = len(P13_STEPS)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ensemble.run_ensemble(mcfg, [sim.state] * k, P13_STEPS[-1], ctx["policy"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    log(f"[13e] served member-steps/s of (a) (the three healthy requests, {sum(P13_STEPS)} "
+        f"member-steps beside the poisoned lane, first request sent to last answer, "
+        f"{a['out']['_wall_s']:.3f} s, return_state included): {served:.3f}; "
+        f"run_ensemble of {k} members x {P13_STEPS[-1]} steps, blocks of {P13_BLOCK}: "
+        f"{k * P13_STEPS[-1] / min(walls):.3f} (best of 2; walls "
+        f"{[round(w, 3) for w in walls]} s)")
+    parts = {k: v for k, v in a["parts"].items() if k != "_tick"}
+    ticks = a["parts"].get("_tick", [])
+    engine = ("case build", "admit", "step_block", "encode_state", "json.dumps", "sendall")
+    ranked = sorted(parts, key=lambda k: -sum(parts[k]))
+    log(f"[13e] where (a)'s {1e3 * a['out']['_wall_s']:.1f} ms went (wall ms of each part: "
+        f"calls, sum, largest; the engine thread's parts add up within its {len(ticks)} "
+        f"ticks of {sum(ticks):.1f} ms, the clients' run beside them): "
+        + "; ".join(f"{k} {len(parts[k])}, {sum(parts[k]):.1f}, {max(parts[k]):.1f}"
+                    for k in ranked)
+        + f"; the engine thread's parts {sum(sum(parts.get(k, [])) for k in engine):.1f} ms;"
+        f" the clients' parse (frame less bytes) "
+        f"{sum(parts.get('client frame', [])) - sum(parts.get('client bytes', [])):.1f} ms")
+    state = ctx["solo_state"]
+    enc, dec = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        blob = serve.encode_state(state)
+        enc.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        serve.decode_state(blob)
+        dec.append(1e3 * (time.perf_counter() - t0))
+    log(f"[13e] state_npz of N {int(state.xn.shape[0])}: {len(blob)} bytes of base64 "
+        f"({len(blob) / state.xn.shape[0]:.2f} a particle), encode {min(enc):.1f} ms, "
+        f"decode {min(dec):.1f} ms (best of 3; {[round(x, 1) for x in enc]}, "
+        f"{[round(x, 1) for x in dec]})")
+    for w in c["stats"]["workers"]:
+        log(f"[13e] worker w{w['wid']} ({w['tag']}): restarts {w['restarts']}, blocks "
+            f"{w['blocks']}, spawn to first progress {w['first_progress_s']} s (its latest "
+            f"process: CUDA context, kernel library load, case build, first block), last "
+            f"per-block lane checkpoint {w['save_ms']} ms")
+    log(f"[13e] frontend: banner {c['banner_s']:.1f} s after spawn; recovery_s after the "
+        f"kill {c['stats']['recovery_s']}; in-process server peak max_memory_allocated "
+        f"{a['peak']} bytes ({a['peak'] / 2**30:.2f} GiB); CLI run --time steps_per_sec "
+        f"{ctx['d'].get('steps_per_sec')}")
+
+
+P13_GATES = (("(a) in-process", p13_inprocess), ("(b) drain", p13_drain),
+             ("(c) frontend", p13_frontend), ("(d) cli", p13_cli))
+
+
+def p13_planted_faults(ctx: dict) -> list:
+    """Faults planted by monkeypatching (this script only), each of which
+    its gate must fail: ``serve.encode_state`` widening the 16-bit leaves
+    to fp32 -> (a); ``SimServer._dispatch`` answering a request with its
+    neighboring lane's event -> (a); ``_admit_resume`` admitting the
+    checkpointed row as if at step 0 (``steps_done`` 0 and the row's step
+    counter 0, so the lane runs the whole request again from the
+    checkpointed state) -> (b). Returns the (fault, gate) pairs that
+    passed."""
+    import base64
+    import io
+
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.core import ensemble
+    from repro_torch.sph import serve
+
+    def widened(state):
+        flat = {k: (v.float() if v.dtype in (torch.float16, torch.bfloat16) else v)
+                for k, v in _flatten(state).items()}
+        bio = io.BytesIO()
+        np.savez(bio, **{k: v.cpu().numpy() for k, v in flat.items()})
+        return base64.b64encode(bio.getvalue()).decode()
+
+    orig_dispatch = serve.SimServer._dispatch
+
+    def neighbor(self, key, ev):
+        lanes = sorted(lane for (k, lane) in self.live if k == key)
+        if ev.lane in lanes and len(lanes) > 1:
+            ev = dataclasses.replace(ev, lane=lanes[(lanes.index(ev.lane) + 1) % len(lanes)])
+        return orig_dispatch(self, key, ev)
+
+    orig_resume = serve.SimServer._admit_resume
+    orig_admit = ensemble.LaneEngine.admit
+
+    def from_zero(self, p):
+        def admit(engine, *args, **kw):
+            if kw.get("carry_row") is not None:
+                kw["carry_row"] = kw["carry_row"]._replace(steps=np.zeros((), np.int32))
+                kw["steps_done"] = 0
+            return orig_admit(engine, *args, **kw)
+
+        with _planted(ensemble.LaneEngine, admit=admit):
+            return orig_resume(self, p)
+
+    plants = (
+        ("encode_state widens fp16 to fp32", serve, dict(encode_state=widened),
+         "(a) in-process"),
+        ("_dispatch answers the neighboring lane", serve.SimServer,
+         dict(_dispatch=neighbor), "(a) in-process"),
+        ("_admit_resume at step 0", serve.SimServer,
+         dict(_admit_resume=from_zero), "(b) drain"),
+    )
+    gates = dict(P13_GATES)
+    missed = []
+    for fault, mod, attrs, name in plants:
+        with _planted(mod, **attrs):
+            caught = not _p11_gate(dict(ctx), name, gates[name], planted=True, phase=13)
+        log(f"[13] planted {fault}: {name} "
+            + ("failed, as it must" if caught else "PASSED: the fault was not caught"))
+        if not caught:
+            missed.append((fault, name))
+    return missed
+
+
+def phase13_serving() -> None:
+    """SPH serving and the CLI on the card: gates (a)-(d), the readings
+    (e), then the three planted faults."""
+    from repro_torch.core import recovery
+
+    policy = recovery.GuardPolicy(block=P13_BLOCK, snapshot_every=1)
+    log(f"[13] taylor_green at n {P13_N}, fp16 records, kernel backend, blocks of "
+        f"{P13_BLOCK}, real sockets on 127.0.0.1, device {P13_DEVICE}")
+    t0 = time.perf_counter()
+    ctx = dict(policy=policy, solo={})
+    failed = [name for name, fn in P13_GATES if not _p11_gate(ctx, name, fn, phase=13)]
+    missed = []
+    if not failed:
+        p13_readings(ctx)
+        missed = p13_planted_faults(ctx)
+    log(f"[13] phase 13 in {time.perf_counter() - t0:.1f} s")
+    if failed or missed:
+        raise AssertionError(f"phase 13 failed: gates {failed}, planted faults not caught "
+                             f"{missed}")
+
+
 def phase6_profile(nsteps: int = 10) -> None:
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
@@ -3031,7 +3658,7 @@ def phase6_profile(nsteps: int = 10) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all but 6)")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of an earlier tree whose K1, K3-K5 and K7 phases 3, 8 "
@@ -3069,6 +3696,8 @@ def main() -> int:
         phase11_guarded()
     if 12 in phases:
         phase12_ensemble()
+    if 13 in phases:
+        phase13_serving()
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
     if 1 not in phases:
         log(gpu_line())

@@ -13,7 +13,8 @@ from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 #: The port's subpackages; each must be present in PORT_FILES.
-SUBPACKAGES = ("core", "kernels", "models", "configs", "launch", "checkpoint", "runtime")
+SUBPACKAGES = ("core", "kernels", "models", "configs", "launch", "checkpoint", "runtime",
+               "sph")
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
