@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 1,12   # build + the ensemble (4 members x 1M particles)
     python3 chip_smoke.py --phases 1,13   # build + SPH serving and the CLI at 1M particles
     python3 chip_smoke.py --phases 1,9    # build + llama3.2-3b served (K6, K7)
+    python3 chip_smoke.py --phases 1,14   # build + the other model families served
     python3 chip_smoke.py --phases 1,9 --parent build/parent  # K7 beside an earlier tree's
     python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1, K3, K4, K5 beside it
     python3 chip_smoke.py --phases 1,8 --parent build/parent    # K3, K4 and K5 beside it
@@ -191,7 +192,29 @@ Phases (each prints its own lines and raises on failure):
      three faults planted by monkeypatching: ``serve.encode_state``
      widening fp16 leaves to fp32 -> (a), ``SimServer._dispatch``
      answering the neighboring lane's event -> (a), ``_admit_resume``
-     admitting the checkpointed row as if at step 0 -> (b).
+     admitting the checkpointed row as if at step 0 -> (b);
+ 14. the other model families served at full width through ``ServeRun``
+     (weights from seed 0, drawn in bf16; launch counts zeroed just
+     before and read just after each request, gated against the family's
+     K6/K7 launches): (a) ``deepseek-moe-16b`` at full depth (16.88e9
+     parameters; B 4, prompt 1024, 160 tokens, greedy) anchored and dense
+     (K7 28 a prefill, K6 28 an anchored decode step), ``cache_bytes``
+     equal to the count from the shapes, peak memory under the card's,
+     the MoE drop fraction; K6 and K7 at the anchored run's captured
+     inputs and at each new shape against their plain versions; the
+     prefill's and first decode step's logits within
+     ``transformer.logit_tolerance`` of the plain path; a second anchored
+     run's tokens, and two runs' logits, bit-equal; (b) granite-3-8b,
+     internlm2-20b, stablelm-1.6b, pixtral-12b, mamba2-130m, zamba2-1.2b,
+     whisper-large-v3 (prompt 256) and deepseek-v2-236b (4 of its 60
+     layers) one after another, each freed before the next is drawn: B 4,
+     prompt 1024, 32 tokens, both KV modes where the family has two;
+     every new K6/K7 shape (rep 1 and 6, Dh 64, whisper's non-causal
+     encoder and cross-attention at Lk 1500) against its plain version
+     and the first decode logits against the plain path; (c) planted
+     faults: K7's ``causal_plus_one`` -> whisper's decoder shape, each
+     K6 fault -> internlm2's rep-6 shape, the MoE combine's order
+     shuffled a call -> (a)'s bit-equality.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -1410,21 +1433,24 @@ def lm_weights(cfg):
         return transformer.compute_weights(params)
 
 
-def lm_prompt(cfg) -> torch.Tensor:
-    rng = np.random.default_rng(LM_REQUEST["seed"])  # ServeRun's prompt
-    return torch.as_tensor(rng.integers(0, cfg.vocab, (LM_REQUEST["batch"],
-                                                      LM_REQUEST["prompt_len"])),
-                           dtype=torch.int32, device="cuda")
+def lm_prompt(cfg, request: dict = LM_REQUEST, device="cuda") -> torch.Tensor:
+    rng = np.random.default_rng(request["seed"])  # ServeRun's prompt
+    return torch.as_tensor(rng.integers(0, cfg.vocab, (request["batch"], request["prompt_len"])),
+                           dtype=torch.int32, device=device)
 
 
 def lm_teacher_forced(weights, cfg, prompt, max_len, steps, tokens=None):
-    """Prefill and ``steps`` decode steps, greedy or fed ``tokens``
-    (B, steps); returns the logits of every step (steps + 1, B, vocab)
-    and the tokens fed."""
-    from repro_torch.models import transformer
+    """Prefill and ``steps`` decode steps of ``cfg``'s family module (with
+    ServeRun's modality stubs), greedy or fed ``tokens`` (B, steps);
+    returns the logits of every step (steps + 1, B, vocab) and the tokens
+    fed."""
+    from repro_torch.launch.serve import modality_inputs
+    from repro_torch.models import registry
 
+    mod = registry.get_module(cfg)
+    kw = modality_inputs(cfg, prompt.shape[0], prompt.device)
     with torch.inference_mode():
-        lg, cache = transformer.prefill(weights, prompt, cfg, max_len)
+        lg, cache = mod.prefill(weights, prompt, cfg, max_len, **kw)
         out = [lg[:, -1]]
         cur = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
         fed = []
@@ -1432,7 +1458,7 @@ def lm_teacher_forced(weights, cfg, prompt, max_len, steps, tokens=None):
             if tokens is not None:
                 cur = tokens[:, i:i + 1]
             fed.append(cur)
-            lg2, cache = transformer.decode_step(weights, cur, cache, cfg)
+            lg2, cache = mod.decode_step(weights, cur, cache, cfg)
             out.append(lg2[:, 0])
             cur = torch.argmax(lg2, dim=-1).to(torch.int32)
     return torch.stack(out), torch.cat(fed, dim=1)
@@ -1637,7 +1663,7 @@ def phase9_serving(results: dict, parent: Path | None = None) -> None:
     lm_profile(weights, cfg_a)
 
 
-def lm_profile(weights, cfg, steps: int = 4) -> None:
+def lm_profile(weights, cfg, steps: int = 4, phase: int = 9, suffix: str = "") -> None:
     """Where an anchored decode step's time goes: a ``torch.profiler``
     window over ``steps`` steps after the prefill and one warm step, with
     device time by kernel and the device's busy share; and the prefill's
@@ -1654,7 +1680,7 @@ def lm_profile(weights, cfg, steps: int = 4) -> None:
             lg, cache = transformer.prefill(weights, prompt, cfg, max_len)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        _log_profile("prefill", prof, wall, 1)
+        _log_profile("prefill", prof, wall, 1, phase, suffix)
         cur = torch.argmax(lg[:, -1:], dim=-1).to(torch.int32)
         lg, cache = transformer.decode_step(weights, cur, cache, cfg)
         torch.cuda.synchronize()
@@ -1665,7 +1691,7 @@ def lm_profile(weights, cfg, steps: int = 4) -> None:
                 lg, cache = transformer.decode_step(weights, cur, cache, cfg)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        _log_profile("anchored decode step", prof, wall, steps)
+        _log_profile("anchored decode step", prof, wall, steps, phase, suffix)
 
 
 def device_events(prof) -> list:
@@ -1677,18 +1703,20 @@ def device_events(prof) -> list:
     return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
-def _log_profile(what: str, prof, wall: float, n: int) -> None:
+def _log_profile(what: str, prof, wall: float, n: int, phase: int = 9,
+                 suffix: str = "") -> None:
     events = device_events(prof)
     device_us = sum(e.self_device_time_total for e in events)
     kernels = sum(e.count for e in events)
-    log(f"[9] profile, {what}: wall {1e3 * wall / n:.3f} ms, device time "
+    log(f"[{phase}] profile, {what}: wall {1e3 * wall / n:.3f} ms, device time "
         f"{device_us / 1e3 / n:.3f} ms, device busy share {device_us / 1e6 / wall:.3f}, "
-        f"{kernels // n} device ops")
+        f"{kernels // n} device ops{suffix}")
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     for e in top:
         if e.self_device_time_total > 0:
-            log(f"[9]   {e.self_device_time_total / 1e3 / n:9.4f} ms {e.count // n:5d} calls  "
-                f"{e.key[:90]}")
+            log(f"[{phase}]   {e.self_device_time_total / 1e3 / n:9.4f} ms "
+                f"{e.count // n:5d} calls  "
+                f"{e.key[:90]}{suffix}")
 
 
 #: Times the kernel wrapper ``MOD.NAME`` of the checkout in argv[1] on the
@@ -3605,6 +3633,307 @@ def phase13_serving() -> None:
                              f"{missed}")
 
 
+# --------------------------------------------------------------------------
+# phase 14: the other model families served
+# --------------------------------------------------------------------------
+#: Phase 14 (a): deepseek-moe-16b at full width and depth, phase 9's request.
+P14_MOE_ARCH = "deepseek-moe-16b"
+P14_MOE_REQUEST = dict(batch=4, prompt_len=1024, gen=160, seed=0)
+#: Phase 14 (b): every other architecture at full width, one after another
+#: (arch, request overrides, layers served or 0 for all). whisper's decoder
+#: context is 448 tokens; deepseek-v2-236b (2.39e11 parameters, ~479 GB
+#: in bf16) keeps its widths and serves 4 of its 60 layers on one card.
+P14_OTHERS = (("granite-3-8b", {}, 0), ("internlm2-20b", {}, 0), ("stablelm-1.6b", {}, 0),
+              ("pixtral-12b", {}, 0), ("mamba2-130m", {}, 0), ("zamba2-1.2b", {}, 0),
+              ("whisper-large-v3", {"prompt_len": 256}, 0), ("deepseek-v2-236b", {}, 4))
+P14_REQUEST = dict(batch=4, prompt_len=1024, gen=32, seed=0)
+#: Module globals read at call time (a CPU rehearsal sets "cpu" and the
+#: SMOKE configs).
+P14_DEVICE = "cuda"
+P14_SMOKE = False
+
+
+def p14_config(arch: str, n_layers: int = 0, kv_mode: str = "dense"):
+    from repro_torch.models import registry
+
+    cfg = registry.get_config(arch, smoke=P14_SMOKE)
+    return dataclasses.replace(cfg, kv_mode=kv_mode, n_layers=n_layers or cfg.n_layers)
+
+
+def p14_weights(cfg) -> dict:
+    """The weights ServeRun draws for ``cfg`` from seed 0, in bf16 as drawn."""
+    from repro_torch.models import registry
+
+    with torch.inference_mode():
+        return registry.init_params(torch.Generator(device=P14_DEVICE).manual_seed(0), cfg,
+                                    dtype=torch.bfloat16)
+
+
+def p14_modes(cfg) -> tuple:
+    """The KV modes a family serves differently: both for the GQA caches
+    (dense, vlm, moe); mla_moe, ssm, hybrid and encdec keep one cache."""
+    return ("anchored", "dense") if cfg.family in ("dense", "vlm", "moe") else ("dense",)
+
+
+def p14_expected_launches(cfg, mode: str, steps: int) -> dict:
+    """K6 and K7 launches of one request: K7 runs every GQA prefill
+    attention (the hybrid's shared block at each site; whisper's encoder
+    self-, decoder self- and cross-attention), K6 each anchored decode
+    step's attention; MLA and the SSM mixers are plain torch."""
+    from repro_torch.models import hybrid
+
+    k7 = {"dense": cfg.n_layers, "vlm": cfg.n_layers, "moe": cfg.n_layers, "mla_moe": 0,
+          "ssm": 0, "hybrid": hybrid.n_sites(cfg),
+          "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}[cfg.family]
+    anchored = mode == "anchored" and cfg.family in ("dense", "vlm", "moe")
+    return {"k6": cfg.n_layers * steps if anchored else 0, "k7": k7}
+
+
+@contextlib.contextmanager
+def moe_drop_fractions(record: list):
+    """Collect each MoE block's drop fraction (a 0-d tensor, read later)."""
+    from repro_torch.models import moe
+
+    orig = moe.moe_block
+
+    def rec(*a, **kw):
+        out, metrics = orig(*a, **kw)
+        record.append(metrics["drop_frac"])
+        return out, metrics
+
+    moe.moe_block = rec
+    try:
+        yield record
+    finally:
+        moe.moe_block = orig
+
+
+def p14_serve(arch: str, cfg, weights, request: dict, mode: str, gpu: str, label: str,
+              store: dict | None = None) -> dict:
+    """One ServeRun request on ``weights``, the K6/K7 launches counted from
+    0 just before and read just after, gated against
+    :func:`p14_expected_launches`; prints the readings."""
+    from repro_torch.launch.serve import ServeRun
+
+    K6, K7 = wrapper("k6"), wrapper("k7")
+    run = ServeRun(arch=arch, smoke=P14_SMOKE, kv_mode=mode,
+                   n_layers=cfg.n_layers, params=weights, device=P14_DEVICE, **request)
+    drops: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K6.launches = 0
+    K7.launches = 0
+    with capture_kernel_inputs(store if store is not None else {}), moe_drop_fractions(drops):
+        out = run.run()
+    torch.cuda.synchronize()
+    launches = {"k6": K6.launches, "k7": K7.launches}
+    want = p14_expected_launches(cfg, mode, request["gen"])
+    peak = torch.cuda.max_memory_allocated()
+    drop = ""
+    if drops:
+        d = torch.stack(drops).float().cpu()
+        n = cfg.n_layers
+        drop = (f"; MoE drop fraction: prefill mean {float(d[:n].mean()):.6g} (max "
+                f"{float(d[:n].max()):.6g}), decode max {float(d[n:].max()):.6g}")
+    log(f"[14] {label} kv {mode}: B {request['batch']} prompt {request['prompt_len']} gen "
+        f"{request['gen']}: prefill {1e3 * out['t_prefill_s']:.3f} ms, decode "
+        f"{out['decode_tok_s']:.3f} tok/s; cache_bytes {out['cache_bytes']}; launches K6 "
+        f"{launches['k6']}, K7 {launches['k7']}; max_memory_allocated {peak} bytes{drop}; "
+        f"tokens[0, :8] {out['tokens'][0, :8].tolist()} ({gpu})")
+    if launches != want:
+        raise AssertionError(f"{label} {mode}: launches {launches}, expected {want}")
+    if out["tokens"].shape != (request["batch"], request["gen"]):
+        raise AssertionError(f"{label} {mode}: tokens of shape {out['tokens'].shape}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if peak >= total:
+        raise AssertionError(f"{label} {mode}: peak {peak} bytes, the card has {total}")
+    out.update(launches=launches, peak=peak)
+    return out
+
+
+def p14_first_logits(weights, cfg, request: dict, tokens=None) -> tuple:
+    """The prefill's last logits and the first decode step's, greedy or
+    fed ``tokens`` (B, 1), on the request's prompt and modality stubs;
+    returns ((2, B, vocab) logits, the token fed)."""
+    max_len = request["prompt_len"] + request["gen"]
+    if cfg.kv_mode == "anchored":
+        max_len = -(-max_len // cfg.kv_block) * cfg.kv_block
+    return lm_teacher_forced(weights, cfg, lm_prompt(cfg, request, P14_DEVICE), max_len, 1,
+                             tokens)
+
+
+def p14_plain_gate(weights, cfg, request: dict, label: str, gpu: str) -> None:
+    """The kernel path against the plain path (K6 and K7 through their
+    plain versions), fed the same token: the prefill's last and the first
+    decode step's logits within ``transformer.logit_tolerance``, and every
+    K6 and K7 launch of the kernel path (every new shape of this family
+    among them) within its rounding bound of its plain version on the
+    same inputs. Raises AssertionError."""
+    from repro_torch.models import transformer
+
+    launches: dict = {}
+    with every_launch_checked(launches):
+        lk, cur = p14_first_logits(weights, cfg, request)
+    with plain_lm_versions():
+        lp, _ = p14_first_logits(weights, cfg, request, tokens=cur)
+    if not bool(torch.isfinite(lk).all()):
+        raise AssertionError(f"{label}: the kernel path's logits are not finite")
+    ratio = ((lk - lp).abs() / transformer.logit_tolerance(lp)).amax(dim=(1, 2))
+    log(f"[14] {label} kv {cfg.kv_mode}: kernel path vs plain path, max |dlogit| / tolerance "
+        f"{float(ratio[0]):.4g} (prefill's last position), {float(ratio[1]):.4g} (first decode "
+        f"step); every launch held against its plain version ({launches['k6']} K6, "
+        f"{launches['k7']} K7): max err/bound K6 {launches['k6_max_ratio']:.3e}, K7 "
+        f"{launches['k7_max_ratio']:.3e}, max normwise {launches['normwise']:.3e} ({gpu})")
+    if float(ratio.max()) > 1.0:
+        raise AssertionError(f"{label} {cfg.kv_mode}: kernel path vs plain path, max |dlogit| "
+                             f"is {float(ratio.max()):.3g} x the tolerance")
+
+
+def p14_moe_bit_equal(weights, cfg, request: dict) -> None:
+    """Two runs of the prefill and first decode step give the same logits
+    bit for bit (the MoE combine adds in one fixed order). Raises."""
+    a, _ = p14_first_logits(weights, cfg, request)
+    b, _ = p14_first_logits(weights, cfg, request)
+    for what, x, y in (("prefill", a[0], b[0]), ("first decode", a[1], b[1])):
+        if not torch.equal(x, y):
+            n = int((x != y).sum())
+            raise AssertionError(f"two runs differ: {n} {what} logits")
+
+
+def _shuffled_combine(orig):
+    """``moe.combine_positions`` with each call's k slots in a fresh
+    random order: the order an atomic scatter-add might take."""
+    def shuffled(order, n_tok, k):
+        pos = orig(order, n_tok, k)
+        return pos[:, torch.randperm(k, device=pos.device)]
+    return shuffled
+
+
+def p14_moe(gpu: str, missed: list) -> None:
+    """(a) deepseek-moe-16b at full width and depth in both KV modes."""
+    from repro_torch.models import moe
+
+    req = P14_MOE_REQUEST
+    cfg = p14_config(P14_MOE_ARCH)
+    t0 = time.perf_counter()
+    weights = p14_weights(cfg)
+    torch.cuda.synchronize()
+    log(f"[14] (a) {P14_MOE_ARCH}: {cfg.param_count(weights)} parameters drawn from seed 0 in "
+        f"bf16 in {time.perf_counter() - t0:.1f} s ({gpu})")
+    store: dict = {}
+    tokens = {}
+    for mode in ("anchored", "dense"):
+        c = dataclasses.replace(cfg, kv_mode=mode)
+        out = p14_serve(P14_MOE_ARCH, c, weights, req, mode, gpu, f"(a) {P14_MOE_ARCH}",
+                        store if mode == "anchored" else None)
+        total = req["prompt_len"] + req["gen"]
+        max_len = -(-total // c.kv_block) * c.kv_block if mode == "anchored" else total
+        want = expected_cache_bytes(c, req["batch"], max_len, mode)
+        if out["cache_bytes"] != want:
+            raise AssertionError(f"(a) {mode}: cache_bytes {out['cache_bytes']} != {want}")
+        tokens[mode] = out["tokens"]
+    # a second anchored request, its first 32 tokens at the first one's max_len
+    # (the same cache shapes, so the same K6 grid): equal bit for bit
+    max_len = -(-(req["prompt_len"] + req["gen"]) // cfg.kv_block) * cfg.kv_block
+    short = {**req, "gen": min(32, req["gen"]), "max_len": max_len}
+    again = p14_serve(P14_MOE_ARCH, dataclasses.replace(cfg, kv_mode="anchored"), weights, short,
+                      "anchored", gpu, f"(a) {P14_MOE_ARCH} again")
+    if not np.array_equal(again["tokens"], tokens["anchored"][:, :short["gen"]]):
+        raise AssertionError("(a) two anchored runs gave different tokens")
+    ca = lm_kernel_checks(store)
+    log(f"[14] (a) K6 at the last decode step's captured inputs: {lm_summary(ca['k6'])} ({gpu})")
+    log(f"[14] (a) K7 at the prefill's captured inputs: {lm_summary(ca['k7'])} ({gpu})")
+    del store
+    cfg_a = dataclasses.replace(cfg, kv_mode="anchored")
+    p14_plain_gate(weights, cfg_a, req, f"(a) {P14_MOE_ARCH}", gpu)
+    lm_profile(weights, cfg_a, phase=14, suffix=f" ({gpu})")  # where a step's time goes
+    p14_moe_bit_equal(weights, cfg_a, req)
+    log(f"[14] (a) two runs: the same {again['tokens'].size} tokens, and the same prefill "
+        f"and first-decode logits, bit for bit ({gpu})")
+    orig = moe.combine_positions
+    moe.combine_positions = _shuffled_combine(orig)
+    try:
+        p14_moe_bit_equal(weights, cfg_a, req)
+        missed.append(("MoE combine in a per-call order", "(a) bit-equality"))
+        log(f"[14] (c) MoE combine in a per-call order: (a)'s bit-equality gate PASSED: the "
+            f"fault was not caught ({gpu})")
+    except AssertionError as e:
+        log(f"[14] (c) MoE combine in a per-call order: (a)'s bit-equality gate failed, as it "
+            f"must: {e} ({gpu})")
+    finally:
+        moe.combine_positions = orig
+    del weights
+    torch.cuda.empty_cache()
+    log(f"[14] (a) in {time.perf_counter() - t0:.1f} s ({gpu})")
+
+
+def p14_planted(label: str, mod, faults, gate, missed: list, gpu: str) -> None:
+    """Each fault of ``faults`` planted in ``mod`` (K6 or K7) must fail
+    ``gate()``."""
+    name = "K6" if mod.__name__.endswith("rcll_kv_attention") else "K7"
+    for fault in faults:
+        params = mod.kernel_params
+        mod.kernel_params = mod.planted_params(fault)
+        try:
+            gate()
+            missed.append((f"{name}:{fault}", label))
+            log(f"[14] (c) {name}:{fault}: {label}'s gate PASSED: the fault was not caught "
+                f"({gpu})")
+        except AssertionError as e:
+            log(f"[14] (c) {name}:{fault}: {label}'s gate failed, as it must: {e} ({gpu})")
+        finally:
+            mod.kernel_params = params
+
+
+def p14_others(gpu: str, missed: list) -> None:
+    """(b) every other architecture at full width, one after another, each
+    freed before the next is drawn; (c)'s kernel faults at whisper's
+    decoder and internlm2's rep-6 shapes."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.kernels import rcll_kv_attention as k6
+
+    for arch, over, n_layers in P14_OTHERS:
+        t0 = time.perf_counter()
+        req = {**P14_REQUEST, **over}
+        cfg = p14_config(arch, n_layers)
+        weights = p14_weights(cfg)
+        torch.cuda.synchronize()
+        n_params = cfg.param_count(weights)
+        cut = (f", {cfg.n_layers} of its {p14_config(arch).n_layers} layers (cut to fit one "
+               f"card)" if n_layers else "")
+        label = f"(b) {arch}"
+        log(f"[14] {label}: {n_params} parameters in bf16{cut}, drawn in "
+            f"{time.perf_counter() - t0:.1f} s ({gpu})")
+        for mode in p14_modes(cfg):
+            p14_serve(arch, dataclasses.replace(cfg, kv_mode=mode), weights, req, mode, gpu,
+                      label)
+        gate_cfg = dataclasses.replace(cfg, kv_mode=p14_modes(cfg)[0])
+
+        def gate():
+            p14_plain_gate(weights, gate_cfg, req, label, gpu)
+
+        gate()
+        if arch == "whisper-large-v3":  # the decoder's causal self-attention
+            p14_planted(label, k7, ("causal_plus_one",), gate, missed, gpu)
+        if arch == "internlm2-20b":  # rep 6
+            p14_planted(label, k6, k6.FAULTS, gate, missed, gpu)
+        del weights
+        torch.cuda.empty_cache()
+        log(f"[14] {label} in {time.perf_counter() - t0:.1f} s ({gpu})")
+
+
+def phase14_families() -> None:
+    """The other model families served at full width on the card."""
+    t0 = time.perf_counter()
+    gpu = gpu_line()
+    missed: list = []
+    p14_moe(gpu, missed)
+    p14_others(gpu, missed)
+    log(f"[14] phase 14 in {time.perf_counter() - t0:.1f} s ({gpu})")
+    if missed:
+        raise AssertionError(f"phase 14: planted faults not caught: {missed}")
+
+
 def phase6_profile(nsteps: int = 10) -> None:
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
@@ -3658,7 +3987,7 @@ def phase6_profile(nsteps: int = 10) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all but 6)")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of an earlier tree whose K1, K3-K5 and K7 phases 3, 8 "
@@ -3698,6 +4027,8 @@ def main() -> int:
         phase12_ensemble()
     if 13 in phases:
         phase13_serving()
+    if 14 in phases:
+        phase14_families()
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
     if 1 not in phases:
         log(gpu_line())

@@ -24,11 +24,15 @@ way, its counters as int32 (B,) arrays.
 (``dataclasses.asdict``), which the port's constructors take as they
 are: ``health.FaultSpec(**fields)``, ``recovery.GuardPolicy(**fields)``.
 
-The LM substrate's parameters and KV caches travel the same way:
-:func:`lm_params_from_numpy` takes JAX's parameter paths
+The LM substrate's parameters and caches travel the same way:
+:func:`lm_params_from_numpy` takes JAX's parameter paths of every family
 (``embed_tokens.embed``, ``layers.attn.wq`` stacked (n_layers, ...),
-``final_norm.norm_w``), and :func:`kv_cache_from_numpy` /
-:func:`kv_cache_to_numpy` a ``DenseKVCache`` or ``AnchoredKVCache`` in
+``layers.moe.experts.w_up``, ``enc_layers.*``, ``shared_attn.*``,
+``w_patch``, ``final_norm.norm_w``), and :func:`kv_cache_from_numpy` /
+:func:`kv_cache_to_numpy` a ``DenseKVCache``, ``AnchoredKVCache``,
+``MLACache`` or ``Mamba2Cache`` keyed by field name, and the nested
+``HybridCache`` and ``EncDecCache`` by dotted field path
+(``mamba.state``, ``shared.k``, ``self_kv.length``, ``enc_out``), in
 JAX's layout, every array in its own dtype (int8/fp16 residual bits
 unchanged; bf16 exactly, as fp32 on the numpy side).
 """
@@ -41,6 +45,7 @@ import torch
 
 from repro_torch.core import cells, nnps, rcll, sph
 from repro_torch.core.solver import PersistentCarry, SPHState
+from repro_torch.models import attention, encdec, hybrid, mamba2
 
 _DTYPES = {
     "xn": torch.float32,
@@ -129,15 +134,14 @@ def fields_from_numpy(cls: type, fields: dict, device) -> NamedTuple:
     return cls(**out)
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def fields_to_numpy(value: NamedTuple) -> dict[str, np.ndarray]:
     """Numpy arrays keyed by field name (None fields skipped; bf16 as fp32)."""
-    out = {}
-    for key, t in value._asdict().items():
-        if t is None:
-            continue
-        t = t.detach().cpu()
-        out[key] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return out
+    return {key: _host(t) for key, t in value._asdict().items() if t is not None}
 
 
 def _array_tensor(arr: np.ndarray, device) -> torch.Tensor:
@@ -160,15 +164,35 @@ def lm_params_from_numpy(tree: dict[str, np.ndarray], device) -> dict:
     return out
 
 
-def kv_cache_from_numpy(cls: type, fields: dict, device) -> NamedTuple:
-    """A ``DenseKVCache`` or ``AnchoredKVCache`` (``cls``) on ``device``
-    from numpy arrays keyed by field name, stacked (n_layers, ...) or not."""
-    return cls(**{key: _array_tensor(np.asarray(fields[key]), device) for key in cls._fields})
+#: The cache classes a nested cache's fields hold, by field name.
+_NESTED = {
+    hybrid.HybridCache: {"mamba": mamba2.Mamba2Cache, "shared": attention.DenseKVCache},
+    encdec.EncDecCache: {"self_kv": attention.DenseKVCache},
+}
 
 
-def kv_cache_to_numpy(cache: NamedTuple) -> dict[str, np.ndarray]:
-    """Numpy arrays keyed by field name (bf16 as fp32, exactly)."""
-    return fields_to_numpy(cache)
+def kv_cache_from_numpy(cls: type, fields: dict, device, prefix: str = "") -> NamedTuple:
+    """A cache of class ``cls`` on ``device`` from numpy arrays keyed by
+    field name (dotted field path for a nested cache), stacked
+    (n_layers, ...) or not."""
+    nested = _NESTED.get(cls, {})
+    return cls(**{
+        key: (kv_cache_from_numpy(nested[key], fields, device, f"{prefix}{key}.")
+              if key in nested else _array_tensor(np.asarray(fields[prefix + key]), device))
+        for key in cls._fields})
+
+
+def kv_cache_to_numpy(cache: NamedTuple, prefix: str = "") -> dict[str, np.ndarray]:
+    """Numpy arrays keyed by field name, or dotted field path in a nested
+    cache (bf16 as fp32, exactly), each a copy that owns its memory (the
+    port's decode steps update a cache in place)."""
+    out = {}
+    for key, value in cache._asdict().items():
+        if isinstance(value, tuple):
+            out.update(kv_cache_to_numpy(value, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = np.array(_host(value))
+    return out
 
 
 def _map_leaves(tree, fn):

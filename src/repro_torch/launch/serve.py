@@ -2,10 +2,14 @@
 bf16 KV cache or the paper-technique RCLL-KV (block-anchored quantized)
 cache. Reports tokens/s and cache bytes.
 
-Port of ``repro.launch.serve``. Prefill attention runs the K7 kernel and
-anchored decode attention the K6 kernel on the GPU (``models.attention``).
+Port of ``repro.launch.serve``, for every architecture of the registry.
+Prefill attention runs the K7 kernel and anchored decode attention the K6
+kernel on the GPU (``models.attention``); MLA and the SSM mixers are
+plain torch, as they are plain jnp in JAX.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
+      --batch 4 --prompt-len 1024 --gen 160 --kv-mode anchored
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b \\
       --batch 4 --prompt-len 1024 --gen 160 --kv-mode anchored
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 """
@@ -19,11 +23,44 @@ import numpy as np
 import torch
 
 from repro_torch.core.solver import resolve_device
-from repro_torch.models import registry, transformer
+from repro_torch.models import layers, registry, transformer
+
+
+def cache_leaves(cache):
+    """The tensors of a cache, nested NamedTuples walked in field order."""
+    if isinstance(cache, torch.Tensor):
+        yield cache
+    else:
+        for field in cache:
+            yield from cache_leaves(field)
+
+
+def cache_clone(cache):
+    """A copy of a (nested) cache that owns its storage."""
+    if isinstance(cache, torch.Tensor):
+        return cache.clone()
+    return type(cache)(*(cache_clone(field) for field in cache))
 
 
 def cache_bytes(cache) -> int:
-    return sum(t.numel() * t.element_size() for t in cache)
+    return sum(t.numel() * t.element_size() for t in cache_leaves(cache))
+
+
+def modality_inputs(cfg, batch: int, device) -> dict:
+    """The modality frontends' stubs, as JAX's ServeRun makes them: encdec
+    frames (B, src_len, d_model) and vlm patch embeddings (B, n_patches,
+    d_model), bf16 standard normals from generators seeded 7 and 8 on
+    ``device`` (JAX draws from ``jax.random.key(7/8)``: other numbers)."""
+    def normal(seed, rows):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return torch.randn((batch, rows, cfg.d_model), generator=gen, device=device,
+                           dtype=torch.bfloat16)
+
+    if cfg.family == "encdec":
+        return {"frames": normal(7, cfg.src_len)}
+    if cfg.family == "vlm":
+        return {"patch_embeds": normal(8, cfg.n_patches)}
+    return {}
 
 
 def _sync(dev: torch.device) -> None:
@@ -40,17 +77,25 @@ class ServeRun:
     gen: int = 32
     max_len: int = 0  # 0 -> prompt_len + gen (rounded to kv_block)
     kv_mode: str = "dense"  # dense | anchored
+    # 0 keeps the config's depth; n > 0 serves its first n layers at the
+    # published widths (a model too deep for one card)
+    n_layers: int = 0
     seed: int = 0
     greedy: bool = True
     device: str | torch.device | None = None  # None -> CUDA (raises without it)
-    # Weights to serve (``transformer``'s parameter dict, e.g. carried from
-    # JAX by ``core.interop.lm_params_from_numpy``); None draws them from seed.
+    # Weights to serve (the family module's parameter dict, e.g. carried
+    # from JAX by ``core.interop.lm_params_from_numpy``); None draws them
+    # from seed, in bf16 as drawn.
     params: dict | None = None
+    # The modality stubs (``frames`` / ``patch_embeds``, e.g. JAX's); None
+    # makes them with :func:`modality_inputs`.
+    inputs: dict | None = None
 
     def run(self) -> dict:
         dev = resolve_device(self.device)
         cfg = registry.get_config(self.arch, smoke=self.smoke)
-        cfg = dataclasses.replace(cfg, kv_mode=self.kv_mode)
+        cfg = dataclasses.replace(cfg, kv_mode=self.kv_mode,
+                                  n_layers=self.n_layers or cfg.n_layers)
         mod = registry.get_module(cfg)
         rng = np.random.default_rng(self.seed)
         max_len = self.max_len or self.prompt_len + self.gen
@@ -59,17 +104,17 @@ class ServeRun:
         tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (self.batch, self.prompt_len)),
                                  dtype=torch.int32, device=dev)
         with torch.inference_mode():
-            params = self.params
-            if params is None:
-                params = mod.init_params(torch.Generator(device=dev).manual_seed(self.seed), cfg)
-            # one bf16 copy of the weights, made once (the fp32 masters drawn
-            # here are released: serving reads only the copy)
-            weights = transformer.compute_weights(params)
-            del params
+            if self.params is None:  # drawn in the compute dtype, one fp32 layer at a time
+                weights = mod.init_params(torch.Generator(device=dev).manual_seed(self.seed),
+                                          cfg, dtype=layers.DEFAULT_COMPUTE)
+            else:  # one bf16 copy of the given weights (none if they are bf16 already)
+                weights = transformer.compute_weights(self.params)
+            kw = (modality_inputs(cfg, self.batch, dev) if self.inputs is None
+                  else {k: v.to(dev) for k, v in self.inputs.items()})
 
             _sync(dev)
             t0 = time.perf_counter()
-            lg, cache = mod.prefill(weights, tokens, cfg, max_len)
+            lg, cache = mod.prefill(weights, tokens, cfg, max_len, **kw)
             _sync(dev)
             t_prefill = time.perf_counter() - t0
 
@@ -77,7 +122,7 @@ class ServeRun:
             out_tokens = [cur]
             # warm up decode off the clock, on a copy: decode_step writes the
             # cache in place
-            mod.decode_step(weights, cur, type(cache)(*(t.clone() for t in cache)), cfg)
+            mod.decode_step(weights, cur, cache_clone(cache), cfg)
             _sync(dev)
             t1 = time.perf_counter()
             for _ in range(self.gen - 1):

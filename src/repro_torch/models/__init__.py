@@ -1,2 +1,2 @@
 """Language-model substrate of the port (counterparts of ``repro.models``):
-the dense decoder family, its GQA attention and KV caches."""
+every family of the registry, its attention, mixers and caches."""

@@ -1,8 +1,7 @@
 """GQA attention: prefill (full-sequence causal) and single-token decode
 against a KV cache.
 
-Port of ``repro.models.attention`` (the parts the dense family uses).
-Two cache representations, in JAX's layouts:
+Port of ``repro.models.attention``. Two cache representations, in JAX's layouts:
   * ``DenseKVCache``   - plain bf16 (B, L, Hkv, Dh) buffer (baseline).
   * ``AnchoredKVCache``- the paper's technique (RCLL-KV): closed 128-token
     blocks live as anchor(fp32) + scale(fp32) + residual(int8/fp16); the
@@ -10,8 +9,9 @@ Two cache representations, in JAX's layouts:
     ``length % block``, branch-free: no host read per step.
 
 Where JAX computes attention in plain jnp, the port calls its kernels:
-``attention_full`` runs K7 (``kernels.flash_attention``) where JAX runs
-``sdpa_chunked(causal=True)``, and ``decode_attention_anchored`` runs K6
+``attention_full`` and ``cross_attention`` run K7
+(``kernels.flash_attention``) where JAX runs ``sdpa_chunked`` (causal or
+not), and ``decode_attention_anchored`` runs K6
 (``kernels.rcll_kv_attention``) over the closed blocks, attends over the
 fp32 tail in plain torch and merges the two parts by their softmax
 statistics (m, l). On CPU tensors the kernels' wrappers run their plain
@@ -107,6 +107,27 @@ def attention_full(p, x, positions, *, n_heads, n_kv, d_head, rope_theta=10000.0
                              causal=causal)
     out = out.transpose(1, 2).to(compute_dtype, memory_format=torch.contiguous_format)
     return out.reshape(b, l, n_heads * d_head) @ p["wo"].to(compute_dtype), (k, v)
+
+
+def cross_attention(p, x, kv_src, *, n_heads, n_kv, d_head,
+                    compute_dtype=layers.DEFAULT_COMPUTE, use_kernel: bool = True):
+    """Encoder-decoder cross attention (no RoPE, non-causal): K7 in the
+    prefill; the decode step's one query takes plain ``sdpa`` with
+    ``use_kernel=False``, as dense decode does."""
+    b, l, _ = x.shape
+    s = kv_src.shape[1]
+    xc = x.to(compute_dtype)
+    sc = kv_src.to(compute_dtype)
+    q = (xc @ p["wq"].to(compute_dtype)).reshape(b, l, n_heads, d_head)
+    k = (sc @ p["wk"].to(compute_dtype)).reshape(b, s, n_kv, d_head)
+    v = (sc @ p["wv"].to(compute_dtype)).reshape(b, s, n_kv, d_head)
+    if use_kernel:
+        out = k7.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                 causal=False).transpose(1, 2)
+    else:
+        out = sdpa(q, k, v, causal=False)
+    out = out.to(compute_dtype, memory_format=torch.contiguous_format)
+    return out.reshape(b, l, n_heads * d_head) @ p["wo"].to(compute_dtype)
 
 
 # --------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Shared building blocks: norms, RoPE, the SwiGLU MLP, embeddings.
+"""Shared building blocks: norms, RoPE, MLPs, embeddings.
 
-Port of ``repro.models.layers`` (the parts the dense family uses).
+Port of ``repro.models.layers`` (all but the training loss).
 Functional style as there: ``init_*(gen, ...) -> params dict`` and pure
 apply functions. Parameters are fp32 masters; each apply function casts
 a weight to the compute dtype at use (``Tensor.to`` is free when the
@@ -10,8 +10,10 @@ constraints (``pt.act*``) are the identity on one device and are dropped.
 """
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 DEFAULT_COMPUTE = torch.bfloat16
@@ -49,6 +51,19 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def init_layernorm(d: int, device) -> dict:
+    return {"norm_w": torch.ones((d,), dtype=torch.float32, device=device),
+            "norm_bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)  # jnp.var
+    out = (xf - mu) * torch.rsqrt(var + eps) * p["norm_w"] + p["norm_bias"]
+    return out.to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # RoPE (half-split, not interleaved; fp32 angles)
 # --------------------------------------------------------------------------
@@ -69,8 +84,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def _sinusoidal_table(length: int, d: int) -> torch.Tensor:
+    pos = np.arange(length)[:, None]
+    div = np.exp(np.arange(0, d, 2) * (-np.log(10000.0) / d))
+    pe = np.zeros((length, d), np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return torch.from_numpy(pe)
+
+
+def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
+    """(length, d) fp32 sin/cos table, computed in float64 numpy as JAX's
+    is (so the two are bit-equal)."""
+    return _sinusoidal_table(length, d).to(device)
+
+
 # --------------------------------------------------------------------------
-# MLP
+# MLPs
 # --------------------------------------------------------------------------
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
     return {
@@ -85,6 +116,18 @@ def swiglu(p: dict, x: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch.Ten
     g = xc @ p["w_gate"].to(compute_dtype)
     u = xc @ p["w_up"].to(compute_dtype)
     h = torch.nn.functional.silu(g.float()).to(compute_dtype) * u
+    return h @ p["w_down"].to(compute_dtype)
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
+    return {"w_up": dense_init(gen, d_model, d_ff), "w_down": dense_init(gen, d_ff, d_model)}
+
+
+def gelu_mlp(p: dict, x: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch.Tensor:
+    xc = x.to(compute_dtype)
+    h = xc @ p["w_up"].to(compute_dtype)
+    # jax.nn.gelu's default is the tanh approximation
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(compute_dtype)
     return h @ p["w_down"].to(compute_dtype)
 
 

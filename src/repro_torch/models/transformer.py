@@ -1,15 +1,16 @@
-"""Decoder-only LM assembly: one config and three entry points (forward,
-prefill, decode_step).
+"""Decoder-only LM assembly: dense / vlm / MoE / MLA-MoE / SSM families
+behind one config and three entry points (forward, prefill, decode_step).
 
-Port of ``repro.models.transformer`` for the dense family (the
-llama3.2-3b serving path). Parameters are a nested dict with JAX's keys
+Port of ``repro.models.transformer`` (the hybrid and encdec families are
+``models.hybrid`` and ``models.encdec``, which use this module's layer
+bodies and helpers). Parameters are a nested dict with JAX's keys
 (``embed_tokens.embed``, ``layers.attn.wq``, ``final_norm.norm_w``, ...),
 the per-layer tensors stacked along a leading (n_layers, ...) axis; caches
 are NamedTuples of stacked (n_layers, ...) tensors, in JAX's layouts. A
-Python loop over layers takes the place of ``lax.scan``; ``remat`` only
-changes what JAX keeps for a backward pass and has no meaning here. The
-moe, mla_moe, ssm/hybrid, encdec and vlm families are not ported (ROADMAP
-Queue 1 item 10b).
+Python loop over layers takes the place of ``lax.scan``. ``remat`` only
+changes what JAX keeps for a backward pass, and ``attn_kv_hoist``,
+``moe_cap_shard`` and JAX's ``pt.act*`` are sharding hints, the identity
+on one device: they keep their fields here and have no effect.
 """
 from __future__ import annotations
 
@@ -19,12 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers
-
-#: Families of the JAX package the port does not run yet.
-UNPORTED_FAMILIES = ("moe", "mla_moe", "ssm", "hybrid", "encdec", "vlm")
-UNPORTED_ITEM = "ROADMAP Queue 1 item 10b (the other model families)"
-
+from repro_torch.models import layers, mamba2, mla, moe
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
@@ -81,6 +77,17 @@ class ArchConfig:
     def head_dim(self) -> int:
         return self.d_head or self.d_model // self.n_heads
 
+    @property
+    def ssm_dims(self) -> mamba2.SSMDims:
+        return mamba2.make_dims(self.d_model, self.d_state, expand=self.expand,
+                                head_dim=self.ssm_head_dim, n_groups=self.n_groups,
+                                d_conv=self.d_conv)
+
+    @property
+    def mla_dims(self) -> mla.MLADims:
+        return mla.MLADims(self.n_heads, self.q_lora, self.kv_lora, self.qk_nope, self.qk_rope,
+                           self.v_head)
+
     def param_count(self, params) -> int:
         return sum(t.numel() for t in _leaves(params))
 
@@ -104,15 +111,6 @@ def logit_tolerance(lg: torch.Tensor) -> torch.Tensor:
     return LOGIT_TOL_ULPS * torch.exp2(torch.floor(torch.log2(top)) - 7)
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} ({cfg.name}) is not ported: "
-                                  f"{UNPORTED_ITEM}")
-    if cfg.norm != "rms" or cfg.mlp != "swiglu":
-        raise NotImplementedError(f"{cfg.name}: only rms norm and the SwiGLU MLP are ported "
-                                  f"({UNPORTED_ITEM})")
-
-
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -127,136 +125,256 @@ def _map(tree, fn, key=""):
     return fn(key, tree)
 
 
-def layer_params(params: dict, i: int) -> dict:
+def layer_params(params: dict, i: int, stack: str = "layers") -> dict:
     """Layer i's parameters: views into the stacked (n_layers, ...) tensors."""
-    return _map(params["layers"], lambda _, t: t[i])
+    return _map(params[stack], lambda _, t: t[i])
+
+
+#: The leaves JAX's apply functions read in fp32 (``.astype(f32)`` or
+#: used as they are beside fp32 math): the norms' weights and biases, the
+#: MoE router, mamba2's conv weights and bias and its SSM scalars. Every
+#: other leaf is a matrix that JAX casts to the compute dtype at use.
+FP32_LEAVES = frozenset({"norm_w", "norm_bias", "router", "conv_w", "conv_bias", "a_log",
+                         "dt_bias", "d_skip"})
+
+
+def _leaf_dtype(key: str, dtype):
+    return torch.float32 if key in FP32_LEAVES else dtype
+
+
+def cast_tree(tree: dict, dtype) -> dict:
+    """``tree`` with every leaf but :data:`FP32_LEAVES` cast to ``dtype``."""
+    return _map(tree, lambda key, t: t.to(_leaf_dtype(key, dtype)))
 
 
 def compute_weights(params: dict, dtype=layers.DEFAULT_COMPUTE) -> dict:
-    """The parameters with every weight matrix cast once to the compute
-    dtype (the norm weights stay fp32). The apply functions cast each
-    weight at use, as JAX does; handed this copy, those casts are free,
-    and the values are the same (both round fp32 to bf16 to nearest even)."""
-    return _map(params, lambda key, t: t if key == "norm_w" else t.to(dtype))
+    """The parameters with every matrix JAX casts at use cast once to the
+    compute dtype; :data:`FP32_LEAVES` stay fp32. The apply functions cast
+    each weight at use, as JAX does; handed this copy, those casts are
+    free, and the values are the same (both round fp32 to bf16 to nearest
+    even). A tree already in the compute dtype is returned as it is."""
+    return cast_tree(params, dtype)
+
+
+def stacked_layers(gen: torch.Generator, n: int, init_one, dtype=torch.float32) -> dict:
+    """``n`` layers drawn one after another by ``init_one()`` (fp32, from
+    ``gen``), each written into (n, ...) stacks made in ``dtype`` (fp32
+    for :data:`FP32_LEAVES`) and released, so at most one fp32 layer
+    lives beside the stacks."""
+    stacked = None
+    for i in range(n):
+        layer = init_one()
+        if stacked is None:
+            stacked = _map(layer, lambda key, t: t.new_empty((n,) + tuple(t.shape),
+                                                             dtype=_leaf_dtype(key, dtype)))
+        for dst, src in zip(_leaves(stacked), _leaves(layer)):
+            dst[i].copy_(src)  # a cast rounds to nearest even, as Tensor.to does
+        del layer
+    return stacked
 
 
 # --------------------------------------------------------------------------
-# Layer bodies
+# Layer bodies (full-sequence + decode variants per family)
 # --------------------------------------------------------------------------
+def _init_norm(cfg, device) -> dict:
+    return (layers.init_rmsnorm(cfg.d_model, device) if cfg.norm == "rms"
+            else layers.init_layernorm(cfg.d_model, device))
+
+
+def _norm(cfg, p, x):
+    return layers.rms_norm(p, x) if cfg.norm == "rms" else layers.layer_norm(p, x)
+
+
+def _init_mlp(gen, cfg, d_ff):
+    return (layers.init_swiglu(gen, cfg.d_model, d_ff) if cfg.mlp == "swiglu"
+            else layers.init_gelu_mlp(gen, cfg.d_model, d_ff))
+
+
+def _mlp(cfg, p, x):
+    return layers.swiglu(p, x) if cfg.mlp == "swiglu" else layers.gelu_mlp(p, x)
+
+
+def _moe(cfg, p, x):
+    return moe.moe_block(p, x, top_k=cfg.top_k, n_routed=cfg.n_routed,
+                         capacity_factor=cfg.capacity_factor)
+
+
 def init_layer(gen: torch.Generator, cfg: ArchConfig) -> dict:
     """One layer's params (stacked into (n_layers, ...) by init_params)."""
-    _require_dense(cfg)
     dev = gen.device
-    return {
-        "ln1": layers.init_rmsnorm(cfg.d_model, dev),
-        "attn": attn_lib.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim),
-        "ln2": layers.init_rmsnorm(cfg.d_model, dev),
-        "mlp": layers.init_swiglu(gen, cfg.d_model, cfg.d_ff),
-    }
+    p = {"ln1": _init_norm(cfg, dev)}
+    if cfg.family in ("dense", "vlm", "moe"):
+        p["attn"] = attn_lib.init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
+                                            cfg.head_dim)
+    elif cfg.family == "mla_moe":
+        p["attn"] = mla.init_mla(gen, cfg.d_model, cfg.n_heads, q_lora=cfg.q_lora,
+                                 kv_lora=cfg.kv_lora, qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
+                                 v_head=cfg.v_head)
+    elif cfg.family in ("ssm", "hybrid"):
+        p["mixer"] = mamba2.init_mamba2(gen, cfg.ssm_dims)
+    else:
+        raise ValueError(cfg.family)
+    if cfg.family in ("dense", "vlm", "mla_moe", "moe"):
+        p["ln2"] = _init_norm(cfg, dev)
+        if cfg.family in ("moe", "mla_moe"):
+            p["moe"] = moe.init_moe(gen, cfg.d_model, cfg.d_expert, cfg.n_routed, cfg.n_shared,
+                                    d_shared=cfg.n_shared * cfg.d_expert)
+        else:
+            p["mlp"] = _init_mlp(gen, cfg, cfg.d_ff)
+    return p
 
 
 def layer_forward(cfg: ArchConfig, p: dict, h, positions):
-    """Full-sequence layer. Returns (h, (k, v), aux)."""
-    out, (k, v) = attn_lib.attention_full(
-        p["attn"], layers.rms_norm(p["ln1"], h), positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-        d_head=cfg.head_dim, rope_theta=cfg.rope_theta)
+    """Full-sequence layer. Returns (h, cache tensors, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family in ("ssm", "hybrid"):
+        out, cache = mamba2.mamba2_forward(p["mixer"], _norm(cfg, p["ln1"], h), cfg.ssm_dims,
+                                           chunk=cfg.ssd_chunk, ssd_compute=cfg.ssd_compute)
+        return h + out, cache, aux
+    if cfg.family == "mla_moe":
+        out, cache = mla.mla_full(p["attn"], _norm(cfg, p["ln1"], h), positions, cfg.mla_dims,
+                                  rope_theta=cfg.rope_theta)
+    else:  # dense / vlm / moe: GQA attention through K7
+        out, cache = attn_lib.attention_full(
+            p["attn"], _norm(cfg, p["ln1"], h), positions, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+            d_head=cfg.head_dim, rope_theta=cfg.rope_theta)
     h = h + out
-    h = h + layers.swiglu(p["mlp"], layers.rms_norm(p["ln2"], h))
-    return h, (k, v), torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family in ("moe", "mla_moe"):
+        mo, metrics = _moe(cfg, p["moe"], _norm(cfg, p["ln2"], h))
+        return h + mo, cache, metrics["aux_loss"]
+    return h + _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], h)), cache, aux
 
 
 def layer_decode(cfg: ArchConfig, p: dict, h, cache_l):
     """Single-token decode layer. cache_l: this layer's cache (views)."""
-    dec = (attn_lib.decode_attention_anchored if cfg.kv_mode == "anchored"
-           else attn_lib.decode_attention_dense)
-    out, new_cache = dec(p["attn"], layers.rms_norm(p["ln1"], h), cache_l, n_heads=cfg.n_heads,
-                         n_kv=cfg.n_kv, d_head=cfg.head_dim, rope_theta=cfg.rope_theta)
+    if cfg.family in ("ssm", "hybrid"):
+        out, new_cache = mamba2.mamba2_decode(p["mixer"], _norm(cfg, p["ln1"], h), cache_l,
+                                              cfg.ssm_dims)
+        return h + out, new_cache
+    if cfg.family == "mla_moe":
+        out, new_cache = mla.mla_decode(p["attn"], _norm(cfg, p["ln1"], h), cache_l,
+                                        cfg.mla_dims, rope_theta=cfg.rope_theta)
+    else:
+        dec = (attn_lib.decode_attention_anchored if cfg.kv_mode == "anchored"
+               else attn_lib.decode_attention_dense)
+        out, new_cache = dec(p["attn"], _norm(cfg, p["ln1"], h), cache_l, n_heads=cfg.n_heads,
+                             n_kv=cfg.n_kv, d_head=cfg.head_dim, rope_theta=cfg.rope_theta)
     h = h + out
-    return h + layers.swiglu(p["mlp"], layers.rms_norm(p["ln2"], h)), new_cache
+    if cfg.family in ("moe", "mla_moe"):
+        mo, _ = _moe(cfg, p["moe"], _norm(cfg, p["ln2"], h))
+        return h + mo, new_cache
+    return h + _mlp(cfg, p["mlp"], _norm(cfg, p["ln2"], h)), new_cache
 
 
 # --------------------------------------------------------------------------
 # Model init / forward / decode
 # --------------------------------------------------------------------------
-def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    """fp32 master parameters on ``gen``'s device, drawn from ``gen`` (the
-    embedding, then layer by layer), the layers stacked (n_layers, ...)."""
-    _require_dense(cfg)
-    p = {"embed_tokens": layers.init_embed(gen, cfg.vocab, cfg.d_model,
-                                           tied=cfg.tied_embeddings)}
-    first = init_layer(gen, cfg)
-    stacked = _map(first, lambda _, t: t.new_empty((cfg.n_layers,) + tuple(t.shape)))
-    for i in range(cfg.n_layers):
-        layer = first if i == 0 else init_layer(gen, cfg)
-        for dst, src in zip(_leaves(stacked), _leaves(layer)):
-            dst[i].copy_(src)
-    p["layers"] = stacked
-    p["final_norm"] = layers.init_rmsnorm(cfg.d_model, gen.device)
+def init_params(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32) -> dict:
+    """Parameters on ``gen``'s device, drawn from ``gen`` in fp32 (the
+    embedding, then layer by layer, then vlm's ``w_patch``), the layers
+    stacked (n_layers, ...). With ``dtype`` bf16 every leaf but
+    :data:`FP32_LEAVES` is cast as it is drawn, one layer at a time: the
+    result equals ``compute_weights(init_params(gen, cfg))`` bit for bit,
+    and peak memory is the bf16 model plus one fp32 layer."""
+    p = {"embed_tokens": cast_tree(layers.init_embed(gen, cfg.vocab, cfg.d_model,
+                                                     tied=cfg.tied_embeddings), dtype),
+         "layers": stacked_layers(gen, cfg.n_layers, lambda: init_layer(gen, cfg), dtype),
+         "final_norm": _init_norm(cfg, gen.device)}
+    if cfg.family == "vlm":
+        p["w_patch"] = layers.dense_init(gen, cfg.d_model, cfg.d_model).to(dtype)
     return p
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *, return_cache: bool = False):
-    """Full-sequence forward. tokens: (B, L). Returns (logits, caches, aux);
-    caches are the stacked (n_layers, B, L, Hkv, Dh) k and v."""
-    _require_dense(cfg)
+def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *, patch_embeds=None,
+            return_cache: bool = False):
+    """Full-sequence forward. tokens: (B, L). Returns (logits, caches, aux):
+    caches are the stacked (n_layers, ...) cache tensors of the family
+    ((k, v), (c_kv, k_rope) or a ``Mamba2Cache``), aux the layers' summed
+    MoE load-balance loss.
+
+    vlm: patch_embeds (B, n_patches, d_model) replace the first n_patches
+    positions (the modality-frontend stub)."""
     b, l = tokens.shape
     h = layers.embed(params["embed_tokens"], tokens)
+    if cfg.family == "vlm" and patch_embeds is not None:
+        pe = patch_embeds.to(h.dtype) @ params["w_patch"].to(h.dtype)
+        h = torch.cat([pe, h[:, cfg.n_patches:]], dim=1)
     positions = torch.arange(l, device=tokens.device)[None].expand(b, l)
-    ks, vs = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    caches = []
     for i in range(cfg.n_layers):
-        h, (k, v), _ = layer_forward(cfg, layer_params(params, i), h, positions)
+        h, cache_l, aux_l = layer_forward(cfg, layer_params(params, i), h, positions)
+        aux = aux + aux_l
         if return_cache:
-            ks.append(k)
-            vs.append(v)
-    h = layers.rms_norm(params["final_norm"], h)
+            caches.append(cache_l)
+    h = _norm(cfg, params["final_norm"], h)
     lg = layers.logits(params["embed_tokens"], h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)  # dense layers add none
-    return lg, ((torch.stack(ks), torch.stack(vs)) if return_cache else None), aux
+    if not return_cache:
+        return lg, None, aux
+    stacked = tuple(torch.stack(ts) for ts in zip(*caches))
+    return lg, (type(caches[0])(*stacked) if hasattr(caches[0], "_fields") else stacked), aux
 
 
-def _stack(cache, n_layers: int):
-    return type(cache)(*(t.unsqueeze(0).repeat(n_layers, *([1] * t.dim())) for t in cache))
+def stack_cache(cache, n: int):
+    """``n`` copies of a cache stacked on a new leading axis."""
+    return type(cache)(*(t.unsqueeze(0).repeat(n, *([1] * t.dim())) for t in cache))
 
 
-def _layer_cache(cache, i: int):
+def layer_cache(cache, i: int):
+    """Layer i's cache: views into the stacked tensors."""
     return type(cache)(*(t[i] for t in cache))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     """Stacked (n_layers leading axis) empty cache."""
-    _require_dense(cfg)
-    if cfg.kv_mode == "anchored":
+    if cfg.family in ("ssm", "hybrid"):
+        one = mamba2.Mamba2Cache.init(batch, cfg.ssm_dims, device=device)
+    elif cfg.family == "mla_moe":
+        one = mla.MLACache.init(batch, max_len, cfg.kv_lora, cfg.qk_rope, device=device)
+    elif cfg.kv_mode == "anchored":
         one = attn_lib.AnchoredKVCache.init(batch, max_len, cfg.n_kv, cfg.head_dim,
                                             block=cfg.kv_block, device=device)
     else:
         one = attn_lib.DenseKVCache.init(batch, max_len, cfg.n_kv, cfg.head_dim, device=device)
-    return _stack(one, cfg.n_layers)
+    return stack_cache(one, cfg.n_layers)
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cache, cfg: ArchConfig):
     """One-token decode. tokens: (B, 1). Returns (logits, cache): the
-    cache's storage is updated in place (``models.attention``) and the
-    returned cache carries the new lengths."""
-    _require_dense(cfg)
+    cache's storage is updated in place (``models.attention``, ``mla``,
+    ``mamba2``) and the returned cache carries the new lengths."""
     h = layers.embed(params["embed_tokens"], tokens)
     lengths = []
     for i in range(cfg.n_layers):
-        h, new_l = layer_decode(cfg, layer_params(params, i), h, _layer_cache(cache, i))
-        lengths.append(new_l.length)
-    h = layers.rms_norm(params["final_norm"], h)
-    return layers.logits(params["embed_tokens"], h), cache._replace(length=torch.stack(lengths))
+        h, new_l = layer_decode(cfg, layer_params(params, i), h, layer_cache(cache, i))
+        if hasattr(new_l, "length"):
+            lengths.append(new_l.length)
+    h = _norm(cfg, params["final_norm"], h)
+    lg = layers.logits(params["embed_tokens"], h)
+    return lg, (cache._replace(length=torch.stack(lengths)) if lengths else cache)
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, max_len: int):
+def _pad_seq(t: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(n_layers, B, L, ...) -> bf16, zero-padded to max_len along L."""
+    return F.pad(t.to(torch.bfloat16), (0, 0) * (t.dim() - 3) + (0, max_len - t.shape[2]))
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, max_len: int, *,
+            patch_embeds=None):
     """Prefill: forward + build a decode-ready cache of size max_len."""
     b, l = tokens.shape
-    lg, (k, v), _ = forward(params, tokens, cfg, return_cache=True)
+    lg, caches, _ = forward(params, tokens, cfg, patch_embeds=patch_embeds, return_cache=True)
+    if cfg.family in ("ssm", "hybrid"):
+        return lg, caches  # stacked Mamba2Cache (state + conv tail)
     length = torch.full((b,), l, dtype=torch.int32, device=tokens.device)
-    pad = (0, 0, 0, 0, 0, max_len - l)  # along the sequence axis
-    k = F.pad(k.to(torch.bfloat16), pad)
-    v = F.pad(v.to(torch.bfloat16), pad)
+    stacked_length = length.expand(cfg.n_layers, b).clone()
+    if cfg.family == "mla_moe":
+        c_kv, k_rope = caches  # (n_layers, B, L, *)
+        return lg, mla.MLACache(c_kv=_pad_seq(c_kv, max_len), k_rope=_pad_seq(k_rope, max_len),
+                                length=stacked_length)
+    k, v = (_pad_seq(t, max_len) for t in caches)  # (n_layers, B, max_len, Hkv, Dh)
     if cfg.kv_mode == "anchored":
         per_layer = [attn_lib.anchored_cache_from_prefill(k[i], v[i], length, block=cfg.kv_block)
                      for i in range(cfg.n_layers)]
         return lg, attn_lib.AnchoredKVCache(*(torch.stack(ts) for ts in zip(*per_layer)))
-    return lg, attn_lib.DenseKVCache(k=k, v=v, length=length.expand(cfg.n_layers, b).clone())
+    return lg, attn_lib.DenseKVCache(k=k, v=v, length=stacked_length)

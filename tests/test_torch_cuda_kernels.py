@@ -585,6 +585,11 @@ KV_CASES = {  # b, h, hkv, dh, nblk, blk, residuals, lengths, heads-last views
     "rep8_blk256_fp16": (2, 16, 2, 128, 2, 256, torch.float16, [512, 300], True),
     # 1100 cache blocks: the merge walks 1100 partials a row
     "long_cache": (1, 3, 1, 128, 1100, 128, torch.int8, [140000], True),
+    # the served families' shapes: internlm2-20b rep 6, stablelm-1.6b
+    # rep 1 at Dh 64, deepseek-moe-16b rep 1
+    "internlm2_rep6": (2, 48, 8, 128, 9, 128, torch.int8, [1024, 1100], True),
+    "stablelm_rep1_dh64": (2, 32, 32, 64, 9, 128, torch.int8, [1024, 1087], True),
+    "deepseek_moe_rep1": (2, 16, 16, 128, 10, 128, torch.int8, [1152, 1025], True),
 }
 
 
@@ -735,6 +740,13 @@ FLASH_BF16_CASES = {  # b, h, hkv, lq, lk, dh, causal, heads-last views
     "lq1_lk129": (2, 6, 2, 1, 129, 64, True, False),
     "lq129_lk63_not_causal": (1, 8, 8, 129, 63, 16, False, True),
     "prefill_rows": (1, 24, 8, 1024, 1024, 128, True, True),
+    # the served families' shapes: whisper-large-v3's encoder (1500 frames,
+    # off the 128-row tile), its cross-attention and causal decoder at Dh
+    # 64, rep 1; internlm2-20b rep 6
+    "whisper_encoder": (1, 20, 20, 1500, 1500, 64, False, True),
+    "whisper_cross": (1, 20, 20, 256, 1500, 64, False, True),
+    "whisper_decoder": (2, 20, 20, 256, 256, 64, True, True),
+    "internlm2_rep6": (1, 48, 8, 1024, 1024, 128, True, True),
 }
 
 

@@ -69,15 +69,6 @@ def test_config_is_jaxs():
     assert treg.ARCH_IDS == jreg.ARCH_IDS
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "granite-3-8b"])
-def test_unported_arch_names_its_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.get_config(arch)
-    cfg = dataclasses.replace(treg.get_config(ARCH, smoke=True), family="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.get_module(cfg)
-
-
 def test_serve_run_needs_cuda_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
