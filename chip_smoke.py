@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,13   # build + SPH serving and the CLI at 1M particles
     python3 chip_smoke.py --phases 1,9    # build + llama3.2-3b served (K6, K7)
     python3 chip_smoke.py --phases 1,14   # build + the other model families served
+    python3 chip_smoke.py --phases 1,15   # build + llama3.2-3b trained (K7, K7b)
     python3 chip_smoke.py --phases 1,9 --parent build/parent  # K7 beside an earlier tree's
     python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1, K3, K4, K5 beside it
     python3 chip_smoke.py --phases 1,8 --parent build/parent    # K3, K4 and K5 beside it
@@ -214,7 +215,33 @@ Phases (each prints its own lines and raises on failure):
      and the first decode logits against the plain path; (c) planted
      faults: K7's ``causal_plus_one`` -> whisper's decoder shape, each
      K6 fault -> internlm2's rep-6 shape, the MoE combine's order
-     shuffled a call -> (a)'s bit-equality.
+     shuffled a call -> (a)'s bit-equality;
+ 15. LM training: ``TrainRun("llama3.2-3b", smoke=False, batch 2, seq 1024,
+     6 AdamW steps)`` at full width and depth (3.21e9 fp32 master
+     parameters from seed 0, the data pipeline's tokens), each gate
+     raising on failure: (a) every K7b call of the main path's first step
+     (28, recorded to the host) against the plain backward on its saved
+     inputs (``flash_attention.check_bwd_against_plain``: each of dq, dk,
+     dv within ``rounding_bound_bwd`` and ``BWD_NORMWISE_LIMIT``); (b) at 2
+     layers (full width) one step's gradients through K7 and K7b against
+     the same step through their plain versions on the card, every leaf
+     within ``P15_GRAD_TOL_ULPS`` normwise, every layer's wq / wk / wv
+     gradient nonzero, two kernel-path steps bit-equal, every K7b call
+     held as in (a); (c) the full-depth run: launch counts zeroed just
+     before and read just after (K7 and K7b 28 a step), losses and grad
+     norms finite, the first loss within ``P15_FIRST_LOSS_SLACK`` of
+     ln(vocab) plus the z-loss; (d) ``tests/test_integration.py``'s resume
+     test on the card at SMOKE size (mamba2-130m, as there, and
+     llama3.2-3b): 24 steps uninterrupted against 12 with a checkpoint and
+     a resume, bit for bit;
+     readings: ms a step by part (forward, backward, optimizer), tokens/s,
+     peak memory (B cut to 1 on an out-of-memory, and said so), K7b timed
+     at the last layer's recorded inputs beside its plain version, its
+     bound (``k7b_work``) and the backward of
+     ``scaled_dot_product_attention``; (e) planted faults: K7b's
+     ``gqa_first_head``, ``causal_plus_one`` and ``d_from_do`` -> (a) at
+     the depth cut, K7 launched without its autograd op (no gradient to
+     wq, wk, wv) -> (b).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -260,6 +287,7 @@ WRAPPERS = (
     ("nnps_pairwise", "rcll_adjacency", "k5"),
     ("rcll_kv_attention", "rcll_kv_decode", "k6"),
     ("flash_attention", "flash_attention", "k7"),
+    ("flash_attention", "flash_attention_bwd", "k7b"),
 )
 
 
@@ -273,7 +301,7 @@ def _kernel_modules() -> dict:
 
 
 def wrapper(key: str):
-    """The kernel wrapper (and its launch counter) of K1..K7."""
+    """The kernel wrapper (and its launch counter) of K1..K7 and K7b."""
     mod, name, _ = next(w for w in WRAPPERS if w[2] == key)
     return getattr(_kernel_modules()[mod], name)
 
@@ -3934,6 +3962,447 @@ def phase14_families() -> None:
         raise AssertionError(f"phase 14: planted faults not caught: {missed}")
 
 
+# --------------------------------------------------------------------------
+# phase 15: LM training (K7 forward with its logsumexp, K7b backward)
+# --------------------------------------------------------------------------
+P15_ARCH = "llama3.2-3b"
+P15_RUN = dict(batch=2, seq=1024, steps=6, seed=0, lr=1e-3, log_every=100)
+#: (b)'s and the plants' depth cut (published widths)
+P15_CUT_LAYERS = 2
+#: (d): ``tests/test_integration.py``'s resume test on the card (an
+#: uninterrupted run, and half of it with a checkpoint then a resume, bit
+#: for bit): its own case (mamba2-130m SMOKE, 24 steps of B 4 x 64, a
+#: checkpoint at 12) and llama3.2-3b at full width cut to 1 layer (K7,
+#: K7b; 4.9e8 parameters, each save of parameters and both moments
+#: 5.9 GB), 4 steps of the main path's B 2 x 1024, the first run's last
+#: step its only checkpoint.
+P15_RESUME = (
+    ("mamba2-130m", dict(smoke=True, steps=24, batch=4, seq=64, ckpt_every=12)),
+    (P15_ARCH, dict(smoke=False, n_layers=1, steps=4, batch=2, seq=1024, ckpt_every=1000)),
+)
+#: Module globals read at call time (a CPU rehearsal sets "cpu" and SMOKE).
+P15_DEVICE = "cuda"
+P15_SMOKE = False
+#: (b)'s normwise limit on each parameter's gradient, kernel path against
+#: the plain path (K7 and K7b through their plain versions) on the card, in
+#: bf16 ulps (2^-8 each): K7's output and K7b's dq, dk, dv are fp32 within
+#: their rounding bounds of the plain versions' (~1e-6 relative) and are
+#: rounded to bf16 at once, so an element may round the other way (one ulp);
+#: every later bf16 product of the step may then flip as well. The CPU
+#: tests' limit for two evaluations of the whole graph
+#: (``tests/lm_parity.py`` ``GRAD_TOL_ULPS``, 16 ulps: JAX's jitted and
+#: op-by-op gradients differ by up to 8.5) is the budget here too.
+P15_GRAD_TOL_ULPS = 16
+#: (c): the first loss within this of ln(vocab) + the z-loss 1e-4 ln(vocab)^2
+#: (a model whose logits carry no information about the next token).
+P15_FIRST_LOSS_SLACK = 0.5
+
+
+def p15_train_run(**kw):
+    from repro_torch.launch.train import TrainRun
+
+    return TrainRun(arch=P15_ARCH, smoke=P15_SMOKE, device=P15_DEVICE, **{**P15_RUN, **kw})
+
+
+def k7b_work(args, kw):
+    """(pairs, fp32 operations, bf16 tensor-core operations, bytes) of one
+    K7b call: 10 Dh operations per (query, visible key) pair (q.k, dO.v,
+    dV += P dO, dQ += dS k, dK += dS q: five products of Dh), q, k, v, O,
+    dO and lse read once and dq, dk, dv (and D) written once. With bf16
+    inputs at fp32 accuracy on the tensor cores, q.k is one bf16 pass; a
+    product with one fp32 operand (dO.v, dS k, dS q) takes three (its
+    exact three-part bf16 split, as K7's p.v), and P dO, both fp32, six
+    (the parts' products down to 2^-24). fp32 inputs take the fp32 rate."""
+    q, k, v, out, lse, dout = args
+    pairs, _, _, _ = k7_work((q, k, v), kw)
+    b, h, lq, dh = q.shape
+    units = 2 * dh * b * h * pairs  # one product of Dh per pair, 2 operations an element
+    nbytes = ((q.numel() + k.numel() + v.numel()) * q.element_size()
+              + (out.numel() + dout.numel() + 2 * lse.numel() + q.numel()
+                 + k.numel() + v.numel()) * 4)
+    if q.dtype == torch.bfloat16:
+        return pairs, 0, units * (1 + 3 + 6 + 3 + 3), nbytes
+    return pairs, 5 * units, 0, nbytes
+
+
+def k7b_each_call(on_call):
+    """Every K7b call goes through its wrapper and counter as usual, then
+    ``on_call(args, kwargs, grads)`` (record it, or hold it to the plain
+    version)."""
+    from repro_torch.kernels import flash_attention as k7
+
+    orig = k7.flash_attention_bwd
+
+    def call(*a, **kw):
+        out = orig(*a, **kw)
+        on_call(a, kw, out)
+        return out
+
+    return _planted(k7, flash_attention_bwd=call)
+
+
+def k7b_recorder(records: list, first: int):
+    """``on_call`` keeping host copies of the first ``first`` calls."""
+    def record(a, kw, out):
+        if len(records) < first:
+            records.append(_map_tensors((a, kw, out), lambda t: t.to("cpu", copy=True)))
+    return record
+
+
+def k7b_checker(record: dict):
+    """``on_call`` holding each call to its plain version as it happens
+    (``check_bwd_against_plain`` on the call's own outputs)."""
+    from repro_torch.kernels import flash_attention as k7
+
+    record.update(n=0, max_ratio=0.0, normwise=0.0)
+
+    def check(a, kw, out):
+        c = k7.check_bwd_against_plain(a, kw, grads_k=out)
+        record["n"] += 1
+        record["max_ratio"] = max(record["max_ratio"], c["max_ratio"])
+        record["normwise"] = max(record["normwise"], c["normwise"])
+    return check
+
+
+def plain_train_versions():
+    """Route training's attention through K7's and K7b's plain versions."""
+    from repro_torch.kernels import flash_attention as k7
+
+    return _planted(k7, flash_attention=k7.flash_attention_plain)
+
+
+def p15_check_records(records: list) -> dict:
+    """(a): each recorded K7b call held against the plain backward on its
+    own saved inputs, on the card."""
+    from repro_torch.kernels import flash_attention as k7
+
+    worst = {"n": 0, "max_ratio": 0.0, "normwise": 0.0, "max_abs_err": 0.0}
+    for a, kw, out in records:
+        a = tuple(t.to(P15_DEVICE) for t in a)
+        c = k7.check_bwd_against_plain(a, kw, grads_k=tuple(t.to(P15_DEVICE) for t in out))
+        worst["n"] += 1
+        for key in ("max_ratio", "normwise", "max_abs_err"):
+            worst[key] = max(worst[key], c[key])
+    return worst
+
+
+def p15_grads(run, params, batch, cfg, mod, route=contextlib.nullcontext) -> tuple:
+    """(loss, {path: fp32 gradient}) of one ``loss_fn`` forward and
+    backward of ``run``'s model, through ``route``'s attention."""
+    from repro_torch.launch.train import deterministic_algorithms
+    from repro_torch.optim import adamw
+
+    for p in adamw.tree_leaves(params):
+        p.grad = None
+    with route(), deterministic_algorithms():
+        loss, _ = mod.loss_fn(params, run._with_stubs(batch, cfg), cfg)
+        loss.backward()
+    grads = {}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                grads[prefix + k] = (v.grad if v.grad is not None
+                                     else torch.zeros_like(v)).detach().clone()
+
+    walk(params)
+    return float(loss.detach()), grads
+
+
+def p15_step_gate(gpu: str, plant=None) -> dict:
+    """(b) at the depth cut: one step's gradients from the kernel path
+    twice (bit-equal) and through the plain versions on the card, every
+    parameter's within ``P15_GRAD_TOL_ULPS`` normwise, every layer's wq /
+    wk / wv gradient nonzero; with every K7b call of the kernel path held
+    to its plain version (a). ``plant`` (a context) wraps the kernel path
+    only. Raises AssertionError."""
+    from repro_torch.data.pipeline import make_batch
+
+    run = p15_train_run(n_layers=P15_CUT_LAYERS, steps=1)
+    cfg, mod, dev, params, _, dcfg, _ = run.build()
+    batch = make_batch(dcfg, 0, dev)
+    checked: dict = {}
+    with (plant or contextlib.nullcontext)():
+        with k7b_each_call(k7b_checker(checked)):
+            loss_k, g_k = p15_grads(run, params, batch, cfg, mod)
+        loss_k2, g_k2 = p15_grads(run, params, batch, cfg, mod)
+    loss_p, g_p = p15_grads(run, params, batch, cfg, mod, plain_train_versions)
+    res = {"loss_k": loss_k, "loss_p": loss_p, "launches_checked": checked,
+           "bit_equal": all(torch.equal(g_k[k], g_k2[k]) for k in g_k) and loss_k == loss_k2}
+    worst, hole = 0.0, []
+    for key, gp in g_p.items():
+        rel = float(torch.linalg.vector_norm(g_k[key] - gp)
+                    / torch.linalg.vector_norm(gp).clamp_min(1e-30))
+        if rel > worst:
+            worst, res["worst_leaf"] = rel, key
+    for name in ("wq", "wk", "wv"):
+        g = g_k[f"layers.attn.{name}"]
+        hole += [f"layer {i} {name}" for i in range(g.shape[0]) if not bool(g[i].any())]
+    res["normwise"] = worst
+    del params, g_k, g_k2, g_p
+    torch.cuda.empty_cache()
+    limit = P15_GRAD_TOL_ULPS * 2.0**-8
+    if hole:
+        raise AssertionError(f"(b) gradients that are all zero: {hole}")
+    if worst > limit:
+        raise AssertionError(f"(b) kernel path vs plain path: gradient of {res['worst_leaf']} "
+                             f"normwise {worst:.4g} > {limit:g}")
+    if not res["bit_equal"]:
+        raise AssertionError("(b) two kernel-path steps' gradients are not bit-equal")
+    return res
+
+
+def p15_resume(arch: str, case: dict) -> dict:
+    """(d) ``tests/test_integration.py``'s resume test on the card:
+    ``case`` uninterrupted, and half of it with a checkpoint then a resume,
+    bit for bit (parameters, moments, step, the resumed steps' losses)."""
+    from repro_torch.launch.train import TrainRun
+    from repro_torch.optim import adamw
+
+    ck = ROOT / "build" / "p15_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    steps = case["steps"]
+
+    def run(**kw):
+        return TrainRun(arch=arch, device=P15_DEVICE, lr=1e-3, log_every=100,
+                        **{**case, "smoke": case["smoke"] or P15_SMOKE, **kw}).run()
+
+    t0 = time.perf_counter()
+    ref = run()
+    t1 = time.perf_counter()
+    run(steps=steps // 2, ckpt_dir=str(ck))
+    t2 = time.perf_counter()
+    resumed = run(ckpt_dir=str(ck))
+    t3 = time.perf_counter()
+    same = all(torch.equal(a, b) for a, b in zip(
+        adamw.tree_leaves(ref["params"]) + adamw.tree_leaves(ref["opt_state"].mu)
+        + adamw.tree_leaves(ref["opt_state"].nu),
+        adamw.tree_leaves(resumed["params"]) + adamw.tree_leaves(resumed["opt_state"].mu)
+        + adamw.tree_leaves(resumed["opt_state"].nu)))
+    n = sum(t.numel() for t in adamw.tree_leaves(ref["params"]))
+    res = {"same": same, "step": int(resumed["opt_state"].step), "params": n,
+           "losses": (ref["losses"], resumed["losses"]), "ref_s": t1 - t0, "half_s": t2 - t1,
+           "resume_s": t3 - t2, "final": (ref["final_loss"], resumed["final_loss"]),
+           "ckpt_bytes": sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())}
+    ref_losses = ref["losses"]
+    del ref, resumed
+    shutil.rmtree(ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if not same or res["step"] != steps or ref_losses[steps // 2:] != res["losses"][1]:
+        raise AssertionError(f"(d) {arch}: the resumed run is not bit-equal to the "
+                             f"uninterrupted one (step {res['step']}; losses {res['losses']})")
+    return res
+
+
+def p15_main(gpu: str, batch: int) -> dict:
+    """(c) the main path at full width and depth through ``TrainRun.run``:
+    counts zeroed just before and read just after; the first step's K7b
+    calls recorded for (a); a ``torch.profiler`` window over the second
+    step (started and stopped by ``run``'s ``on_step``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import flash_attention as k7
+
+    window: dict = {}
+
+    def on_step(step, _loss):
+        torch.cuda.synchronize()
+        if step == 0:
+            window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            window["prof"].start()
+            window["t0"] = time.perf_counter()
+        elif step == 1:
+            window["wall"] = time.perf_counter() - window["t0"]
+            window["prof"].stop()
+
+    run = p15_train_run(batch=batch)
+    cfg = run.config()
+    records: list = []
+    torch.cuda.reset_peak_memory_stats()
+    K7, K7b = wrapper("k7"), k7.flash_attention_bwd
+    K7.launches = 0
+    K7b.launches = 0
+    t0 = time.perf_counter()
+    with k7b_each_call(k7b_recorder(records, cfg.n_layers)):
+        out = run.run(on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if "wall" in window:
+        _log_profile("the second training step", window["prof"], window["wall"], 1, phase=15,
+                     suffix=f" ({gpu})")
+    res = {"launches": {"k7": K7.launches, "k7b": K7b.launches}, "wall": wall,
+           "peak": torch.cuda.max_memory_allocated(), "losses": out["losses"],
+           "grad_norms": out["grad_norms"], "parts": out["parts"], "records": records,
+           "params": cfg.param_count(out["params"]), "batch": batch, "cfg": cfg}
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
+def p15_readings(rec: tuple, gpu: str) -> dict:
+    """K7b at the main path's first recorded call (the last layer's):
+    against its plain version, timed in a CUDA graph beside the plain
+    version, its bound and the library's backward."""
+    from repro_torch.kernels import flash_attention as k7
+
+    a, kw, _ = rec
+    a = tuple(t.to(P15_DEVICE) for t in a)
+    c = k7.check_bwd_against_plain(a, kw)
+    fn = k7.flash_attention_bwd
+    ms = time_ms_graph(lambda: fn(*a, **kw), reps=10)
+    eager_ms = time_ms(lambda: fn(*a, **kw), reps=10)
+    plain_ms = time_ms(lambda: k7.flash_attention_bwd_ref(*a, **kw), reps=3, warmup=1)
+    q, k, v = (t.float().detach().requires_grad_() for t in a[:3])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    o = sdpa(q, k, v, is_causal=kw.get("causal", True), enable_gqa=True)
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), a[5], retain_graph=True), reps=5)
+    pairs, ops_n, tensor_ops, nbytes = k7b_work(a, kw)
+    bms, by = bound(nbytes, ops_n, tensor_ops)
+    fp32_ms = 5 * 2 * a[0].shape[-1] * a[0].shape[0] * a[0].shape[1] * pairs \
+        / H100_FP32_OPS_PER_S * 1e3
+    log(f"[15] K7b flash_attention_bwd {tuple(a[0].shape)} {a[0].dtype} (the main path's "
+        f"first call, the last layer's): {ms:.4f} ms a call (2 kernels) in a CUDA graph ({eager_ms:.4f} "
+        f"ms one by one from Python; plain {plain_ms:.4f} ms), bound {bms:.4f} ms by {by} "
+        f"({pairs} pairs; {tensor_ops:.4g} ops at bf16 tensor-core 989 TFLOP/s, {ops_n:.4g} at "
+        f"fp32 67 TFLOP/s; {nbytes} bytes at 3.35 TB/s; all 10 Dh at the fp32 rate "
+        f"{fp32_ms:.4f} ms); library (scaled_dot_product_attention's backward, fp32, causal, "
+        f"GQA) {lib_ms:.4f} ms; against the plain version: max|err| {c['max_abs_err']:.3e}, "
+        f"max err/bound {c['max_ratio']:.3e}, normwise {c['normwise']:.3e} (limit "
+        f"{k7.BWD_NORMWISE_LIMIT:g}) ({gpu})")
+    return {"ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": c["max_abs_err"]}
+
+
+def p15_planted_faults(gpu: str) -> list:
+    """(e): each K7b fault must fail (a) (every call of a depth-cut step
+    held against the plain backward), and K7 launched without its
+    autograd op (the silent hole: no gradient reaches wq, wk, wv) must
+    fail (b)."""
+    from repro_torch.kernels import flash_attention as k7
+
+    missed = []
+    for fault in k7.BACKWARD_FAULTS:
+        try:
+            p15_step_gate(gpu, lambda fault=fault: _planted(
+                k7, backward_params=k7.planted_backward_params(fault)))
+            missed.append(f"K7b:{fault}")
+            log(f"[15] (e) K7b:{fault}: (a)/(b) PASSED: the fault was not caught ({gpu})")
+        except AssertionError as e:
+            log(f"[15] (e) K7b:{fault}: failed, as it must: {str(e)[:300]} ({gpu})")
+
+    orig = k7.flash_attention
+
+    def launch_only(q, k, v, *, causal=True, scale=None):
+        return orig(q.detach(), k.detach(), v.detach(), causal=causal, scale=scale)
+
+    try:
+        p15_step_gate(gpu, lambda: _planted(k7, flash_attention=launch_only))
+        missed.append("K7 without its autograd op")
+        log(f"[15] (e) K7 without its autograd op: (b) PASSED: not caught ({gpu})")
+    except AssertionError as e:
+        log(f"[15] (e) K7 without its autograd op: (b) failed, as it must: {str(e)[:300]} "
+            f"({gpu})")
+    return missed
+
+
+def phase15_training(results: dict) -> None:
+    """LM training on the card: gates (a)-(e) and the readings."""
+    from repro_torch.kernels import flash_attention as k7
+
+    t_phase = time.perf_counter()
+    gpu = gpu_line()
+    t0 = time.perf_counter()
+    r = p15_step_gate(gpu)
+    log(f"[15] (b) {P15_ARCH}, {P15_CUT_LAYERS} layers at full width (depth cut), B "
+        f"{P15_RUN['batch']} x {P15_RUN['seq']}: loss kernel path {r['loss_k']:.6f}, plain "
+        f"path {r['loss_p']:.6f}; worst gradient normwise {r['normwise']:.4g} "
+        f"({r.get('worst_leaf')}; limit {P15_GRAD_TOL_ULPS * 2.0**-8:g}); every layer's wq, wk, "
+        f"wv gradient nonzero; two kernel-path steps bit-equal; (a) on its "
+        f"{r['launches_checked']['n']} K7b calls: max err/bound "
+        f"{r['launches_checked']['max_ratio']:.3e}, normwise "
+        f"{r['launches_checked']['normwise']:.3e}; {time.perf_counter() - t0:.1f} s ({gpu})")
+
+    main = None
+    for batch in (P15_RUN["batch"], 1):
+        try:
+            main = p15_main(gpu, batch)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[15] (c) B {batch}: out of memory ({str(e)[:160]}); cut to B 1 ({gpu})")
+            torch.cuda.empty_cache()
+            if batch == 1:
+                raise
+    cfg = main["cfg"]
+    want = {"k7": cfg.n_layers * P15_RUN["steps"], "k7b": cfg.n_layers * P15_RUN["steps"]}
+    losses, norms = main["losses"], main["grad_norms"]
+    expect = math.log(cfg.vocab) + 1e-4 * math.log(cfg.vocab) ** 2
+    parts = main["parts"][2:] or main["parts"]  # step 0 warms up, step 1 is profiled
+    med = {k: float(np.median([p[k] for p in parts])) for k in ("forward", "backward",
+                                                                "optimizer")}
+    step_ms = 1e3 * sum(med.values())
+    tokens = main["batch"] * P15_RUN["seq"]
+    cut = "" if main["batch"] == P15_RUN["batch"] else f" (cut from B {P15_RUN['batch']})"
+    log(f"[15] (c) {P15_ARCH} at full width and depth ({main['params']} parameters, fp32 "
+        f"masters, seed 0): B {main['batch']}{cut} x {P15_RUN['seq']}, {P15_RUN['steps']} AdamW "
+        f"steps through TrainRun.run in {main['wall']:.1f} s; launches K7 {main['launches']['k7']}"
+        f", K7b {main['launches']['k7b']} (expected {want}); losses "
+        f"{[round(x, 6) for x in losses]}; grad norms {[round(x, 5) for x in norms]}; first "
+        f"loss {losses[0]:.6f} against ln(vocab) + z-loss {expect:.6f}; peak "
+        f"max_memory_allocated {main['peak']} bytes ({gpu})")
+    log(f"[15] (c) step time (median of steps 2-{len(main['parts']) - 1}; parts from CUDA "
+        f"events, one synchronization a step): "
+        f"forward {1e3 * med['forward']:.3f} ms, backward {1e3 * med['backward']:.3f} ms, "
+        f"optimizer {1e3 * med['optimizer']:.3f} ms, step {step_ms:.3f} ms, "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s; the first step (warm-up, (a)'s host copies) "
+        f"{1e3 * sum(main['parts'][0].values()):.3f} ms ({gpu})")
+    if main["launches"] != want:
+        raise AssertionError(f"(c) launches {main['launches']}, expected {want}")
+    if not (all(math.isfinite(x) for x in losses + norms)):
+        raise AssertionError("(c) a loss or grad norm is not finite")
+    if abs(losses[0] - expect) > P15_FIRST_LOSS_SLACK:
+        raise AssertionError(f"(c) first loss {losses[0]:.4f} is not within "
+                             f"{P15_FIRST_LOSS_SLACK} of {expect:.4f}")
+
+    t0 = time.perf_counter()
+    a = p15_check_records(main["records"])
+    log(f"[15] (a) every K7b call of the main path's first step ({a['n']} calls, layers "
+        f"{cfg.n_layers - 1}..0) against the plain backward on its saved inputs: max err/bound "
+        f"{a['max_ratio']:.3e}, normwise {a['normwise']:.3e} (limit {k7.BWD_NORMWISE_LIMIT:g}),"
+        f" max|err| {a['max_abs_err']:.3e}; {time.perf_counter() - t0:.1f} s ({gpu})")
+    if a["n"] != cfg.n_layers:
+        raise AssertionError(f"(a) {a['n']} K7b calls recorded, expected {cfg.n_layers}")
+    rd = p15_readings(main["records"][0], gpu)
+    launches = main["launches"]["k7b"]
+    del main
+
+    for arch, case in P15_RESUME:
+        t0 = time.perf_counter()
+        d = p15_resume(arch, case)
+        steps = case["steps"]
+        size = "SMOKE" if case["smoke"] else f"{case['n_layers']} layer(s) at full width"
+        log(f"[15] (d) {arch} {size} ({d['params']} parameters), B {case['batch']} x "
+            f"{case['seq']}: {steps} steps uninterrupted ({d['ref_s']:.1f} s) and {steps // 2} "
+            f"with a checkpoint ({d['half_s']:.1f} s) + a resume to {steps} ({d['resume_s']:.1f}"
+            f" s; checkpoints {d['ckpt_bytes']} bytes): parameters, moments, step and the last "
+            f"{steps // 2} losses bit-equal (final loss {d['final'][0]:.6f}); "
+            f"{time.perf_counter() - t0:.1f} s ({gpu})")
+
+    t0 = time.perf_counter()
+    missed = p15_planted_faults(gpu)
+    log(f"[15] (e) planted faults in {time.perf_counter() - t0:.1f} s ({gpu})")
+    results["train_kernels"] = [{
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:87", "launches": launches,
+        "max_abs_err": rd["max_abs_err"], "ms": rd["ms"], "plain_ms": rd["plain_ms"],
+        "bound_ms": rd["bound_ms"], "bound_by": rd["bound_by"], "library_ms": rd["lib_ms"]}]
+    log(f"[15] phase 15 in {time.perf_counter() - t_phase:.1f} s ({gpu})")
+    if missed:
+        raise AssertionError(f"phase 15: planted faults not caught: {missed}")
+
+
 def phase6_profile(nsteps: int = 10) -> None:
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
@@ -3987,7 +4456,7 @@ def phase6_profile(nsteps: int = 10) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all but 6)")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of an earlier tree whose K1, K3-K5 and K7 phases 3, 8 "
@@ -4029,11 +4498,13 @@ def main() -> int:
         phase13_serving()
     if 14 in phases:
         phase14_families()
+    if 15 in phases:
+        phase15_training(results)
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
     if 1 not in phases:
         log(gpu_line())
     log(json.dumps({"kernels": results.get("kernels", []) + results.get("nnps_kernels", [])
-                    + results.get("lm_kernels", [])}))
+                    + results.get("lm_kernels", []) + results.get("train_kernels", [])}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,6 +35,9 @@ The LM substrate's parameters and caches travel the same way:
 (``mamba.state``, ``shared.k``, ``self_kv.length``, ``enc_out``), in
 JAX's layout, every array in its own dtype (int8/fp16 residual bits
 unchanged; bf16 exactly, as fp32 on the numpy side).
+:func:`lm_params_to_numpy` is the way back, and :func:`opt_state_from_numpy`
+/ :func:`opt_state_to_numpy` carry AdamW's ``OptState`` (``step``,
+``mu.<path>``, ``nu.<path>``) between the packages' trainers.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ import torch
 from repro_torch.core import cells, nnps, rcll, sph
 from repro_torch.core.solver import PersistentCarry, SPHState
 from repro_torch.models import attention, encdec, hybrid, mamba2
+from repro_torch.optim import adamw
 
 _DTYPES = {
     "xn": torch.float32,
@@ -161,6 +165,41 @@ def lm_params_from_numpy(tree: dict[str, np.ndarray], device) -> dict:
         for key in parents:
             node = node.setdefault(key, {})
         node[leaf] = _array_tensor(np.asarray(arr), device)
+    return out
+
+
+def lm_params_to_numpy(params: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """The port's LM parameters as host numpy arrays keyed by JAX parameter
+    path (``lm_params_from_numpy``'s keys), bf16 as fp32, each a copy."""
+    out = {}
+    for key, value in params.items():
+        if isinstance(value, dict):
+            out.update(lm_params_to_numpy(value, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = np.array(_host(value.detach()))
+    return out
+
+
+def opt_state_from_numpy(tree: dict[str, np.ndarray], device):
+    """An ``optim.adamw.OptState`` on ``device`` from numpy arrays keyed
+    ``step`` (int32 0-d) and ``mu.<path>`` / ``nu.<path>`` by JAX
+    parameter path (JAX's ``OptState(step, mu, nu)`` flattened), so both
+    packages can start from one optimizer state. Every array is copied:
+    ``adamw.apply_updates`` updates the moments in place."""
+    def moments(prefix):
+        return lm_params_from_numpy({k[3:]: np.array(v) for k, v in tree.items()
+                                     if k.startswith(prefix)}, device)
+
+    return adamw.OptState(
+        step=torch.tensor(np.asarray(tree["step"]).astype(np.int32), device=device),
+        mu=moments("mu."), nu=moments("nu."))
+
+
+def opt_state_to_numpy(state) -> dict[str, np.ndarray]:
+    """:func:`opt_state_from_numpy`'s arrays of an ``OptState``, each a copy."""
+    out = {"step": np.asarray(_host(state.step), dtype=np.int32)}
+    out.update(lm_params_to_numpy(state.mu, "mu."))
+    out.update(lm_params_to_numpy(state.nu, "nu."))
     return out
 
 

@@ -8,6 +8,10 @@
 // key j for query i when j <= i + (Lk - Lq) (the last query sees the last key;
 // with Lq = Lk, as in prefill, the TPU kernel's rows >= cols). A fully masked
 // row keeps m at -1e30 and l at 0 and writes 0 (the TPU kernel's guard).
+// For training, an optional output takes each row's logsumexp lse = m + log l
+// (+inf for a row that sees no key), which the backward kernels
+// (flash_attention_bwd.cu) recompute the weights from; serving passes null and
+// the kernels' work and output are unchanged.
 // Rows and columns past Lq / Lk are masked, so any length works; K/V tiles
 // that lie wholly above the diagonal are skipped (they add exp(-inf) = 0).
 // The output is fp32 (B, H, Lq, Dh), written once per row by one CTA: no
@@ -72,6 +76,12 @@ struct Strides {  // element strides of a (B, heads, L, Dh) view; Dh stride 1
   long long b, h, l;
 };
 
+// A row's logsumexp m + log l of its scaled scores, for the backward pass;
+// +inf for a row that sees no key (l = 0), so exp(s - lse) is exactly 0.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.0f ? m + logf(l) : __int_as_float(0x7f800000);
+}
+
 // --------------------------------------------------------------------------
 // fp32 inputs: CUDA cores
 // --------------------------------------------------------------------------
@@ -85,8 +95,8 @@ constexpr int THREADS = BQ * LANES;  // 128
 template <int DH>
 __global__ void __launch_bounds__(THREADS)
     flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, int H, int rep, int Lq,
-                 int Lk, Strides qs, Strides ks, Strides vs, FlashParams p) {
+                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                 int H, int rep, int Lq, int Lk, Strides qs, Strides ks, Strides vs, FlashParams p) {
   static_assert(DH % 16 == 0, "Dh must be a multiple of 16");
   constexpr int GROUPS = DH / 16;  // float4 groups per thread
   __shared__ __align__(16) float s_k[BK][DH];
@@ -175,6 +185,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   if (!row_ok) return;
+  if (lse != nullptr && lane == 0) lse[static_cast<long long>(bh) * Lq + i] = row_lse(m, l);
   const float inv_l = 1.0f / (l > 0.0f ? l : 1.0f);
   float* o = out + (static_cast<long long>(bh) * Lq + i) * DH;
 #pragma unroll
@@ -189,13 +200,14 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, float* out, int B, int H, int Hkv,
-                   int Lq, int Lk, const long long* st, FlashParams p, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, float* out, float* lse, int B,
+                   int H, int Hkv, int Lq, int Lk, const long long* st, FlashParams p,
+                   cudaStream_t stream) {
   const dim3 grid((Lq + BQ - 1) / BQ, B * H);
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]};
   flash_kernel<DH><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      out, H, H / Hkv, Lq, Lk, qs, ks, vs, p);
+      out, lse, H, H / Hkv, Lq, Lk, qs, ks, vs, p);
   return cudaGetLastError();
 }
 
@@ -502,8 +514,8 @@ template <int DH>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, float* __restrict__ out, int H,
-                       int rep, int Lq, int Lk, FlashParams p) {
+                       const __grid_constant__ CUtensorMap tv, float* __restrict__ out,
+                       float* __restrict__ lse, int H, int rep, int Lq, int Lk, FlashParams p) {
   using T = Tile<DH>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // Q: NCB boxes of BQ rows
@@ -590,6 +602,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     mbar_arrive(empty(t));  // this thread is done with tile t's stage
   }
 
+  if (lse != nullptr && lane % 4 == 0) {  // l is quad-reduced: one lane of each quad writes
+    if (r.r0 < Lq) lse[static_cast<long long>(bh) * Lq + r.r0] = row_lse(r.m0, r.l0);
+    if (r.r1 < Lq) lse[static_cast<long long>(bh) * Lq + r.r1] = row_lse(r.m1, r.l1);
+  }
   const float inv0 = 1.0f / (r.l0 > 0.0f ? r.l0 : 1.0f), inv1 = 1.0f / (r.l1 > 0.0f ? r.l1 : 1.0f);
   float* ob = out + static_cast<long long>(bh) * Lq * DH;
 #pragma unroll
@@ -645,8 +661,9 @@ bool make_map(CUtensorMap* map, const void* base, int L, int heads, int B, const
 }
 
 template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, float* out, int B, int H, int Hkv,
-                   int Lq, int Lk, const long long* st, FlashParams p, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, float* out, float* lse, int B,
+                   int H, int Hkv, int Lq, int Lk, const long long* st, FlashParams p,
+                   cudaStream_t stream) {
   using T = Tile<DH>;
   CUtensorMap tq, tk, tv;
   if (!make_map<DH>(&tq, q, Lq, H, B, st, BQ) || !make_map<DH>(&tk, k, Lk, Hkv, B, st + 3, BK) ||
@@ -656,8 +673,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, float* out, int 
       flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Lq + BQ - 1) / BQ);
-  flash_wgmma_kernel<DH><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, out, H, H / Hkv, Lq, Lk,
-                                                              p);
+  flash_wgmma_kernel<DH><<<grid, THREADS, T::SMEM, stream>>>(tq, tk, tv, out, lse, H, H / Hkv, Lq,
+                                                              Lk, p);
   return cudaGetLastError();
 }
 
@@ -679,23 +696,26 @@ cudaError_t dispatch_dh(int dh, Launch&& launch) {
 // dtype: 0 fp32 (CUDA cores), 1 bf16 (tensor cores) (q, k and v alike). strides:
 // q, k, v (b, head, l) each, in elements; for bf16 the base addresses must be
 // 16-byte aligned and the strides multiples of 8 (TMA). out is contiguous
-// (B, H, Lq, Dh) fp32. Returns cudaGetLastError() (or the refusal's error).
+// (B, H, Lq, Dh) fp32; lse, when not null, contiguous (B, H, Lq) fp32 (each
+// row's m + log l, for the backward pass; serving passes null). Returns
+// cudaGetLastError() (or the refusal's error).
 extern "C" int repro_flash_attention(int dtype, int dh, const void* q, const void* k,
-                                     const void* v, void* out, int B, int H, int Hkv, int Lq,
-                                     int Lk, const long long* strides, const void* params,
+                                     const void* v, void* out, void* lse, int B, int H, int Hkv,
+                                     int Lq, int Lk, const long long* strides, const void* params,
                                      void* stream) {
   // the parameters travel as a pointer to their C struct (a ctypes.Structure):
   // a type of this file's unnamed namespace must not appear in a C signature
   const FlashParams p = *static_cast<const FlashParams*>(params);
   const auto s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
+  float* ls = static_cast<float*>(lse);
   if (dtype == 0)
     return dispatch_dh(dh, [&](auto d) {
-      return simt::launch<decltype(d)::value>(q, k, v, o, B, H, Hkv, Lq, Lk, strides, p, s);
+      return simt::launch<decltype(d)::value>(q, k, v, o, ls, B, H, Hkv, Lq, Lk, strides, p, s);
     });
   if (dtype == 1)
     return dispatch_dh(dh, [&](auto d) {
-      return tc::launch<decltype(d)::value>(q, k, v, o, B, H, Hkv, Lq, Lk, strides, p, s);
+      return tc::launch<decltype(d)::value>(q, k, v, o, ls, B, H, Hkv, Lq, Lk, strides, p, s);
     });
   return cudaErrorInvalidValue;
 }

@@ -16,6 +16,13 @@ operations (see the source's note and PERF.md).
 the plain version :func:`flash_attention_ref` (``kernels/ref.py::
 ref_attention``'s math) only for CPU tensors. The two agree within
 :func:`rounding_bound`. ``flash_attention.launches`` counts launches.
+
+Training (K7b): where an input needs a gradient, :func:`flash_attention`
+is the autograd op :class:`Attention`. Its forward launches K7 with each
+row's logsumexp as a second output; its backward launches the hand-written
+gradient :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``),
+the counterpart of XLA's autodiff of JAX's plain ``sdpa_chunked``, held to
+:func:`flash_attention_bwd_ref` within :func:`rounding_bound_bwd`.
 """
 from __future__ import annotations
 
@@ -217,7 +224,16 @@ def random_inputs(seed: int, b: int, h: int, hkv: int, lq: int, lk: int, dh: int
 @functools.cache
 def _entry():
     fn = _build.library().lib.repro_flash_attention
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_entry():
+    fn = _build.library().lib.repro_flash_attention_bwd
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
@@ -254,19 +270,13 @@ def tma_addressable(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(s > 0 and s % 8 == 0 for s in _strides(t))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                    scale: float | None = None) -> torch.Tensor:
-    """Attention of q (B, H, Lq, Dh) over k/v (B, Hkv, Lk, Dh) (fp32 or
-    bf16, any strides with a unit head-dim stride) -> (B, H, Lq, Dh) f32.
-    A bf16 view that TMA cannot read in place (:func:`tma_addressable`)
-    is copied first.
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
-    CPU tensors take :func:`flash_attention_ref`; CUDA tensors launch the
-    kernel or raise.
-    """
+
+def _launch(q, k, v, causal: bool, scale: float | None, with_lse: bool):
+    """Launch K7 on CUDA tensors: (out, lse or None, the q, k, v it read)."""
     dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {dev}")
     if k.device != dev or v.device != dev:
@@ -279,19 +289,321 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     hkv, lk = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else 1.0 / math.sqrt(dh))
     out = torch.empty((b, h, lq, dh), dtype=torch.float32, device=dev)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=dev) if with_lse else None
     strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in _strides(t)))
     params = kernel_params(scale=scale, causal=causal)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry()(_KIND[q.dtype], dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), b, h, hkv, lq, lk, ctypes.addressof(strides),
-                      ctypes.addressof(params), stream)
+                      out.data_ptr(), lse.data_ptr() if with_lse else None, b, h, hkv, lq, lk,
+                      ctypes.addressof(strides), ctypes.addressof(params), stream)
     _build.check_rc(rc, "flash_attention")
     _WRAPPER.launches += 1
-    return out
+    return out, lse, (q, k, v)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention of q (B, H, Lq, Dh) over k/v (B, Hkv, Lk, Dh) (fp32 or
+    bf16, any strides with a unit head-dim stride) -> (B, H, Lq, Dh) f32.
+    A bf16 view that TMA cannot read in place (:func:`tma_addressable`)
+    is copied first.
+
+    CPU tensors take :func:`flash_attention_ref`; CUDA tensors launch the
+    kernel or raise. Where an input needs a gradient, the call is an
+    autograd op (:class:`Attention`): K7 also writes each row's
+    logsumexp, and the backward launches K7b (:func:`flash_attention_bwd`);
+    on CPU tensors the plain forward and :func:`flash_attention_bwd_ref`.
+    Otherwise (serving) the launch writes no logsumexp.
+    """
+    if _needs_grad(q, k, v):
+        return Attention.apply(q, k, v, causal, scale, False)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    return _launch(q, k, v, causal, scale, with_lse=False)[0]
 
 
 flash_attention.launches = 0
 # The counter lives on this function object even if the module attribute
 # is rebound (e.g. by a harness that wraps the wrapper).
 _WRAPPER = flash_attention
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, scale: float | None = None) -> torch.Tensor:
+    """:func:`flash_attention` through its plain versions on any device:
+    the plain forward and, where an input needs a gradient,
+    :func:`flash_attention_bwd_ref` (a check's plain path on the card)."""
+    if _needs_grad(q, k, v):
+        return Attention.apply(q, k, v, causal, scale, True)
+    return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+
+
+class Attention(torch.autograd.Function):
+    """K7 and its gradient as one autograd op. The forward keeps the
+    tensors the kernel read (a bf16 view TMA cannot address is copied by
+    the launch), its output and each row's logsumexp; the backward hands
+    them and dO to K7b's wrapper, and casts dq, dk, dv (fp32) to q's, k's
+    and v's dtypes. On CPU tensors the forward is the plain version (and
+    the wrapper takes its plain version); ``plain`` takes both plain
+    versions on any device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float | None, plain: bool):
+        scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
+        if plain or q.device.type == "cpu":
+            out = flash_attention_ref(q, k, v, causal=causal, scale=scale)
+            lse, read = lse_ref(q, k, causal=causal, scale=scale), (q, k, v)
+        else:
+            out, lse, read = _launch(q, k, v, causal, scale, with_lse=True)
+        ctx.save_for_backward(*read, out, lse)
+        ctx.causal, ctx.scale, ctx.plain = causal, scale, plain
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_ref if ctx.plain else flash_attention_bwd
+        grads = bwd(q, k, v, out, lse, dout, causal=ctx.causal, scale=ctx.scale)
+        return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None, None)
+
+
+# --------------------------------------------------------------------------
+# K7b: the backward pass
+# --------------------------------------------------------------------------
+def lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+            scale: float | None = None) -> torch.Tensor:
+    """Each row's logsumexp of its scaled, masked scores (B, H, Lq) f32, as
+    K7 writes it: +inf for a row that sees no key."""
+    lq, lk, dh = q.shape[2], k.shape[2], q.shape[3]
+    rep = q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(rep, dim=1)) * scale
+    valid = _valid(lq, lk, causal, q.device)
+    lse = torch.logsumexp(torch.where(valid, s, -math.inf), dim=-1)
+    return torch.where(valid.any(dim=-1), lse, math.inf)
+
+
+def _valid(lq: int, lk: int, causal: bool, device, shift: int = 0) -> torch.Tensor:
+    return (causal_mask(lq, lk, device, shift) if causal
+            else torch.ones((lq, lk), dtype=torch.bool, device=device))
+
+
+def _group_sum(x: torch.Tensor, hkv: int) -> torch.Tensor:
+    """(B, H, L, Dh) -> (B, Hkv, L, Dh): the sum over each kv head's rep
+    query heads, in head order."""
+    b, h = x.shape[:2]
+    return x.reshape(b, hkv, h // hkv, *x.shape[2:]).sum(dim=2)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            scale: float | None = None) -> tuple:
+    """Plain PyTorch version of :func:`flash_attention_bwd`: (dq, dk, dv)
+    f32 from K7's inputs, its output ``out`` and logsumexp ``lse``
+    (:func:`lse_ref`) and dO, by the formulas of the kernel's source:
+    D = rowsum(dO o), P = exp(scale q k^T - lse) on the visible pairs,
+    dV = P^T dO, dS = P (dO v^T - D), dQ = scale dS k, dK = scale dS^T q,
+    dK and dV summed over each kv head's query heads."""
+    lq, lk, dh = q.shape[2], k.shape[2], q.shape[3]
+    hkv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qf, kf, vf = _gqa(q, k, v)
+    do, of = dout.float(), out.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.where(_valid(lq, lk, causal, q.device), torch.exp(s - lse[..., None]), 0.0)
+    d = (do * of).sum(dim=-1)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do, vf) - d[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = _group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale, hkv)
+    dv = _group_sum(torch.einsum("bhqk,bhqd->bhkd", p, do), hkv)
+    return dq, dk, dv
+
+
+class BwdParams(ctypes.Structure):
+    _fields_ = [("scale", ctypes.c_float), ("causal", ctypes.c_int),
+                ("causal_shift", ctypes.c_int), ("first_head_only", ctypes.c_int),
+                ("d_from_do", ctypes.c_int)]
+
+
+def backward_params(*, scale: float, causal: bool) -> BwdParams:
+    """K7b's run-time parameters; the fault switches are 0
+    (:func:`planted_backward_params` plants them)."""
+    return BwdParams(scale, int(causal), 0, 0, 0)
+
+
+#: The faults :func:`planted_backward_params` plants in K7b.
+BACKWARD_FAULTS = ("gqa_first_head", "causal_plus_one", "d_from_do")
+
+
+def planted_backward_params(fault: str):
+    """A stand-in for :func:`backward_params` with ``fault`` planted:
+    ``gqa_first_head``: dK and dV take only the first query head of each
+    kv head's group; ``causal_plus_one``: the backward's causal mask lets
+    each query see one future key; ``d_from_do``: D_i = sum_d dO_id, O
+    left out. A check rebinds ``backward_params`` to it, and must then
+    fail."""
+    if fault not in BACKWARD_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}, not in {BACKWARD_FAULTS}")
+    clean = backward_params
+
+    def faulty(**kw) -> BwdParams:
+        p = clean(**kw)
+        setattr(p, {"gqa_first_head": "first_head_only", "causal_plus_one": "causal_shift",
+                    "d_from_do": "d_from_do"}[fault], 1)
+        return p
+
+    return faulty
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        scale: float | None = None) -> tuple:
+    """K7b: (dq (B, H, Lq, Dh), dk, dv (B, Hkv, Lk, Dh)) f32, the gradient
+    of :func:`flash_attention` at q, k, v (K7's inputs as it read them,
+    fp32 or bf16, unit head-dim stride), its output ``out`` (B, H, Lq,
+    Dh) f32, each row's logsumexp ``lse`` (B, H, Lq) f32 (K7's, or
+    :func:`lse_ref`; +inf where a row sees no key) and dO.
+
+    CPU tensors take :func:`flash_attention_bwd_ref`; CUDA tensors launch
+    the two kernels of ``csrc/flash_attention_bwd.cu`` (D and dQ, then dK
+    and dV) or raise. ``flash_attention_bwd.launches`` counts calls.
+    """
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, got {dev}")
+    if any(t.device != dev for t in (k, v, out, lse, dout)):
+        raise ValueError("q, k, v, out, lse and dout must be on one device")
+    _check_qkv(q, k, v)
+    b, h, lq, dh = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    if lq == 0 or lk == 0:
+        raise ValueError(f"flash_attention_bwd needs Lq, Lk >= 1, got {lq}, {lk}")
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, lq):
+        raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, lse "
+                         f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(dh))
+    out, dout, lse = (t.float().contiguous() for t in (out, dout, lse))
+    dsum = torch.empty((b, h, lq), dtype=torch.float32, device=dev)
+    dq = torch.empty((b, h, lq, dh), dtype=torch.float32, device=dev)
+    dk = torch.empty((b, hkv, lk, dh), dtype=torch.float32, device=dev)
+    dv = torch.empty_like(dk)
+    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v) for s in _strides(t)))
+    params = backward_params(scale=scale, causal=causal)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _bwd_entry()(_KIND[q.dtype], dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, lq, lk,
+                          ctypes.addressof(strides), ctypes.addressof(params), stream)
+    _build.check_rc(rc, "flash_attention_bwd")
+    _BWD_WRAPPER.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+_BWD_WRAPPER = flash_attention_bwd
+
+
+def rounding_bound_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                       scale: float | None = None) -> tuple:
+    """Elementwise tolerances (dq, dk, dv) of two fp32 evaluations of the
+    backward from the same inputs that sum in different orders (K7b
+    against :func:`flash_attention_bwd_ref`), u = 2^-24:
+
+      * a score s_ij = scale q_i.k_j carries at most (Dh + 2) u S_ij of
+        rounding, S_ij = scale sum_d |q_id k_jd|; with the subtraction of
+        lse_i and ``expf`` (a few ulps), P_ij has the relative error
+        rho_ij = (Dh + 2) u S_ij + (|s_ij| + |lse_i| + 4) u;
+      * D_i and dp_ij = dO_i.v_j carry (Dh + 2) u of their absolute sums,
+        so dS_ij = P_ij (dp_ij - D_i) is off by at most
+        e_ij = P_ij (rho_ij |dp_ij - D_i| + (Dh + 2) u (sum_d |dO_id v_jd|
+        + sum_d |dO_id o_id|) + 2 u |dp_ij - D_i|);
+      * dQ_i = scale sum_j dS_ij k_j moves by scale sum_j e_ij |k_j| plus
+        the n-term sum's (n + 8) u scale sum_j |dS_ij k_j| (n = Lk); dK_j
+        the same over i with q (n = rep Lq, the group's query heads
+        summed); dV_j by sum_i P_ij rho_ij |dO_i| + (n + 8) u sum_i P_ij |dO_i|.
+
+    Each evaluation is within that of the exact values; the bound is 4x it
+    (2 for the two evaluations, 2 to spare). Inputs as
+    :func:`flash_attention_bwd`'s; CUDA or CPU tensors."""
+    lq, lk, dh = q.shape[2], k.shape[2], q.shape[3]
+    hkv, rep = k.shape[1], q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qf, kf, vf = _gqa(q, k, v)
+    do, of = dout.float(), out.float()
+    valid = _valid(lq, lk, causal, q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    sabs = torch.einsum("bhqd,bhkd->bhqk", qf.abs(), kf.abs()) * scale
+    lse_f = torch.where(torch.isfinite(lse), lse, 0.0)[..., None]
+    p = torch.where(valid, torch.exp(s - lse_f), 0.0)
+    gdh = (dh + 2) * _U32
+    rho = gdh * sabs + (s.abs() + lse_f.abs() + 4.0) * _U32
+    d = (do * of).sum(dim=-1)[..., None]
+    dabs = (do * of).abs().sum(dim=-1)[..., None]
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vf)
+    dpabs = torch.einsum("bhqd,bhkd->bhqk", do.abs(), vf.abs())
+    ds_abs = (p * (dp - d)).abs()
+    e = p * ((rho + 2 * _U32) * (dp - d).abs() + gdh * (dpabs + dabs))
+    del s, sabs, dp, dpabs
+    kabs, qabs, doabs = kf.abs(), qf.abs(), do.abs()
+    dq_b = scale * (torch.einsum("bhqk,bhkd->bhqd", e, kabs)
+                    + (lk + 8) * _U32 * torch.einsum("bhqk,bhkd->bhqd", ds_abs, kabs))
+    nq = rep * lq + 8
+    dk_b = scale * _group_sum(torch.einsum("bhqk,bhqd->bhkd", e, qabs)
+                              + nq * _U32 * torch.einsum("bhqk,bhqd->bhkd", ds_abs, qabs), hkv)
+    dv_b = _group_sum(torch.einsum("bhqk,bhqd->bhkd", p * rho, doabs)
+                      + nq * _U32 * torch.einsum("bhqk,bhqd->bhkd", p, doabs), hkv)
+    return 4.0 * dq_b, 4.0 * dk_b, 4.0 * dv_b
+
+
+#: Limit on ‖kernel − plain‖₂ / ‖plain‖₂ of each of K7b's outputs, beside
+#: the elementwise bound (readings in PERF.md).
+BWD_NORMWISE_LIMIT = 1e-4
+
+
+def check_bwd_against_plain(args: tuple, kw: dict, grads_k: tuple | None = None) -> dict:
+    """Launch K7b (or take its outputs ``grads_k``) and its plain version
+    on the same inputs ``args`` = (q, k, v, out, lse, dout) and hold each
+    of dq, dk, dv within :func:`rounding_bound_bwd` elementwise and
+    :data:`BWD_NORMWISE_LIMIT` normwise; raises AssertionError. Returns
+    the worst ``max_abs_err``, ``max_ratio`` and ``normwise`` of the three
+    and each one's under its name."""
+    if grads_k is None:
+        grads_k = flash_attention_bwd(*args, **kw)
+    grads_r = flash_attention_bwd_ref(*args, **kw)
+    bounds = rounding_bound_bwd(*args, **kw)
+    res = {"max_abs_err": 0.0, "max_ratio": 0.0, "normwise": 0.0}
+    for name, gk, gr, bnd in zip(("dq", "dk", "dv"), grads_k, grads_r, bounds):
+        if not bool(torch.isfinite(gk).all()):
+            raise AssertionError(f"K7b {name}: non-finite values")
+        err = (gk - gr).abs()
+        ratio = float((err / bnd.clamp_min(1e-30)).max())
+        normwise = float(torch.linalg.vector_norm(err)
+                         / torch.linalg.vector_norm(gr).clamp_min(1e-30))
+        if ratio > 1.0 or normwise > BWD_NORMWISE_LIMIT:
+            raise AssertionError(
+                f"K7b {name} disagrees with its plain version: max err/bound {ratio:.3g}, "
+                f"normwise {normwise:.3g} (limit {BWD_NORMWISE_LIMIT:g})")
+        res[name] = {"max_abs_err": float(err.max()), "max_ratio": ratio, "normwise": normwise}
+        res["max_abs_err"] = max(res["max_abs_err"], float(err.max()))
+        res["max_ratio"] = max(res["max_ratio"], ratio)
+        res["normwise"] = max(res["normwise"], normwise)
+    return res
+
+
+def random_bwd_inputs(seed: int, b: int, h: int, hkv: int, lq: int, lk: int, dh: int,
+                      dtype: torch.dtype, *, causal: bool = True, heads_last: bool = False,
+                      device="cpu") -> tuple:
+    """The inputs of one K7b call, for the checks and tests: q, k, v as
+    :func:`random_inputs`, K7's output and logsumexp from the plain
+    versions, and a normal dO (B, H, Lq, Dh) f32."""
+    q, k, v = random_inputs(seed, b, h, hkv, lq, lk, dh, dtype, heads_last=heads_last,
+                            device=device)
+    out = flash_attention_ref(q, k, v, causal=causal)
+    lse = lse_ref(q, k, causal=causal)
+    rng = np.random.default_rng(seed + 1)
+    dout = torch.as_tensor(rng.normal(size=(b, h, lq, dh)).astype(np.float32), device=device)
+    return q, k, v, out, lse, dout

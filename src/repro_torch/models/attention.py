@@ -16,7 +16,10 @@ not), and ``decode_attention_anchored`` runs K6
 fp32 tail in plain torch and merges the two parts by their softmax
 statistics (m, l). On CPU tensors the kernels' wrappers run their plain
 versions (``flash_attention_ref``, ``rcll_kv_decode_ref``). Dense decode
-uses ``sdpa``, as in JAX.
+uses ``sdpa``, as in JAX. In training (an input of K7 needs a gradient)
+K7's call is an autograd op whose backward is the hand-written K7b, where
+JAX differentiates ``sdpa_chunked`` with XLA (``kernels.flash_attention.
+Attention``); serving launches K7 as before.
 
 Unlike JAX's immutable arrays, the caches are updated in place (the KV
 cache is decode's largest tensor, and copying it per step would cost more

@@ -76,8 +76,9 @@ def encode(params, frames, cfg):
     return layers.layer_norm(params["enc_norm"], h)
 
 
-def decoder_forward(params, tokens, enc_out, cfg):
-    """Returns (logits, stacked (n_layers, B, L, Hkv, Dh) k and v)."""
+def decoder_forward(params, tokens, enc_out, cfg, *, return_cache=False):
+    """Returns (logits, stacked (n_layers, B, L, Hkv, Dh) k and v, or
+    None without ``return_cache``)."""
     b, l = tokens.shape
     h = layers.embed(params["embed_tokens"], tokens)
     h = h + layers.sinusoidal_positions(l, cfg.d_model, h.device).to(h.dtype)
@@ -91,17 +92,24 @@ def decoder_forward(params, tokens, enc_out, cfg):
         h = h + attn_lib.cross_attention(p_l["xattn"], layers.layer_norm(p_l["ln_x"], h),
                                          enc_out, **_heads(cfg))
         h = h + layers.gelu_mlp(p_l["mlp"], layers.layer_norm(p_l["ln2"], h))
-        ks.append(k)
-        vs.append(v)
+        if return_cache:
+            ks.append(k)
+            vs.append(v)
     h = layers.layer_norm(params["final_norm"], h)
-    return layers.logits(params["embed_tokens"], h), (torch.stack(ks), torch.stack(vs))
+    lg = layers.logits(params["embed_tokens"], h)
+    return lg, ((torch.stack(ks), torch.stack(vs)) if return_cache else None)
 
 
 def forward(params, tokens, cfg, *, frames=None, return_cache=False):
     enc_out = encode(params, frames, cfg)
-    lg, kv = decoder_forward(params, tokens, enc_out, cfg)
-    return lg, (kv if return_cache else None), torch.zeros((), dtype=torch.float32,
-                                                           device=lg.device)
+    lg, kv = decoder_forward(params, tokens, enc_out, cfg, return_cache=return_cache)
+    return lg, kv, torch.zeros((), dtype=torch.float32, device=lg.device)
+
+
+def loss_fn(params, batch, cfg):
+    lg, _, _ = forward(params, batch["tokens"], cfg, frames=batch["frames"])
+    loss = layers.cross_entropy(lg[:, :-1], batch["labels"][:, 1:])
+    return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32, device=lg.device)}
 
 
 class EncDecCache(NamedTuple):
@@ -121,7 +129,7 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> EncDecCache:
 def prefill(params, tokens, cfg, max_len: int, *, frames=None):
     b, l = tokens.shape
     enc_out = encode(params, frames, cfg)
-    lg, (k, v) = decoder_forward(params, tokens, enc_out, cfg)
+    lg, (k, v) = decoder_forward(params, tokens, enc_out, cfg, return_cache=True)
     pad = (0, 0, 0, 0, 0, max_len - l)  # along the sequence axis
     length = torch.full((cfg.n_layers, b), l, dtype=torch.int32, device=tokens.device)
     return lg, EncDecCache(

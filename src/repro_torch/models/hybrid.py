@@ -105,11 +105,13 @@ def forward(params, tokens, cfg, *, patch_embeds=None, return_cache=False):
         out, cache = mamba2.mamba2_forward(p_l["mixer"], layers.rms_norm(p_l["ln1"], h),
                                            cfg.ssm_dims, chunk=cfg.ssd_chunk)
         h = h + out
-        m_caches.append(cache)
+        if return_cache:
+            m_caches.append(cache)
         if _site_after(cfg, i) is not None:
             res, kv = _shared_forward(params["shared_attn"], h, emb0, positions, cfg)
             h = h + res
-            s_caches.append(kv)
+            if return_cache:
+                s_caches.append(kv)
     h = layers.rms_norm(params["final_norm"], h)
     lg = layers.logits(params["embed_tokens"], h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -117,6 +119,12 @@ def forward(params, tokens, cfg, *, patch_embeds=None, return_cache=False):
         return lg, None, aux
     mamba = mamba2.Mamba2Cache(*(torch.stack(ts) for ts in zip(*m_caches)))
     return lg, (mamba, tuple(torch.stack(ts) for ts in zip(*s_caches))), aux
+
+
+def loss_fn(params, batch, cfg):
+    lg, _, aux = forward(params, batch["tokens"], cfg)
+    loss = layers.cross_entropy(lg[:, :-1], batch["labels"][:, 1:])
+    return loss, {"ce": loss, "aux": aux}
 
 
 def init_cache(cfg, batch: int, max_len: int, device=None) -> HybridCache:

@@ -1,6 +1,6 @@
 """Shared building blocks: norms, RoPE, MLPs, embeddings.
 
-Port of ``repro.models.layers`` (all but the training loss).
+Port of ``repro.models.layers``.
 Functional style as there: ``init_*(gen, ...) -> params dict`` and pure
 apply functions. Parameters are fp32 masters; each apply function casts
 a weight to the compute dtype at use (``Tensor.to`` is free when the
@@ -150,3 +150,18 @@ def embed(p: dict, tokens: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch
 def logits(p: dict, x: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch.Tensor:
     w = p.get("unembed", p["embed"]).to(compute_dtype)
     return (x.to(compute_dtype) @ w.T).float()
+
+
+def cross_entropy(lg: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross-entropy with optional z-loss, fp32 accumulation.
+
+    JAX picks the label's logit by an iota-compare sum over the vocab (a
+    sum of zeros and one term: the same value as this gather), so that
+    vocab-sharded logits need no all-gather; one card holds them whole."""
+    lg = lg.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse**2
+    return torch.mean(loss)

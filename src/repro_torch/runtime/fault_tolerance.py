@@ -1,18 +1,19 @@
-"""Fault-tolerance runtime: heartbeats and the straggler watchdog.
+"""Fault-tolerance runtime: heartbeats, straggler watchdog, elastic
+resize decisions.
 
-Port of the heartbeat half of ``repro.runtime.fault_tolerance``, plain
-Python: on a cluster the heartbeat file is a per-host path on shared
-storage (or a KV store); here it's local disk, which exercises the same
-logic.
+Port of ``repro.runtime.fault_tolerance``, plain Python: on a cluster
+the heartbeat file is a per-host path on shared storage (or a KV store);
+here it's local disk, which exercises the same logic.
 
 Components:
   * HeartbeatWriter  - each host touches <dir>/host_<id>.hb every step.
   * HeartbeatMonitor - a coordinator reads all hb files; hosts silent for
-    > timeout are dead.
+    > timeout are dead -> triggers an elastic restart (fewer hosts).
   * StragglerWatchdog - EMA of step wall-time; a step slower than
     mean * threshold is flagged; persistent stragglers are reported.
-
-``plan_elastic_mesh`` and ``TrainGuard`` go with training.
+  * plan_elastic_mesh - given the surviving device count, the largest
+    (data, model) mesh <= available and the batch re-spec.
+  * TrainGuard - the per-step bookkeeping of the training driver.
 """
 from __future__ import annotations
 
@@ -138,3 +139,44 @@ class StragglerWatchdog:
             if self.consecutive_slow >= self.patience:
                 self.flagged = True
         return slow
+
+
+def plan_elastic_mesh(n_devices: int, *, model_parallel: int = 16, global_batch: int = 256):
+    """Largest power-of-two data axis that fits the surviving devices,
+    keeping TP fixed (reshaping TP would re-shard every weight).
+
+    Returns dict(mesh_shape, drop_devices, per_device_batch).
+    """
+    data = max(1, n_devices // model_parallel)
+    # round data axis down to a divisor of the global batch
+    while data > 1 and global_batch % data != 0:
+        data -= 1
+    used = data * model_parallel
+    return {
+        "mesh_shape": (data, model_parallel),
+        "axis_names": ("data", "model"),
+        "drop_devices": n_devices - used,
+        "per_device_batch": global_batch // data,
+    }
+
+
+@dataclasses.dataclass
+class TrainGuard:
+    """Bundles the per-step fault-tolerance bookkeeping for a driver."""
+
+    heartbeat: HeartbeatWriter
+    watchdog: StragglerWatchdog
+    monitor: HeartbeatMonitor | None = None
+    expected_hosts: int = 1
+
+    def on_step(self, step: int, step_time_s: float) -> dict:
+        self.heartbeat.beat(step)
+        slow = self.watchdog.observe(step_time_s)
+        dead = (self.monitor.dead_hosts(self.expected_hosts)
+                if self.monitor else [])
+        return {
+            "straggler": slow,
+            "straggler_flagged": self.watchdog.flagged,
+            "dead_hosts": dead,
+            "needs_resize": bool(dead),
+        }

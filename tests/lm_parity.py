@@ -379,3 +379,106 @@ def serve_tokens_match(arch: str, mode: str, b: int = 4, n_prompt: int = 128, ge
         compared += upto
     assert compared > 0
     return compared
+
+
+# --------------------------------------------------------------------------
+# Training: loss_fn and its gradients in both packages
+# --------------------------------------------------------------------------
+#: Normwise limit on each parameter's gradient, port against JAX, in bf16
+#: ulps (2^-8 each, relative): the loss's gradient reaches every leaf
+#: through bf16 cotangents rounded at each product, so two evaluations that
+#: round differently (JAX jitted fuses without rounding, op by op rounds
+#: each op, the port as op by op in another order) differ by a few ulps.
+#: JAX's own jitted and op-by-op gradients at SMOKE (B 2, L 32) differ by
+#: up to 0.0331 normwise (zamba2's ln1 norm weights; 0.0088-0.011 for the
+#: dense, vlm and encdec configs, 0.032 deepseek-moe's router); the port
+#: and JAX by as much (0.0335 at most). 16 ulps = 0.0625 leaves ~2x room.
+GRAD_TOL_ULPS = 16
+
+
+def train_batch(cfg, b: int = 2, l: int = 32, step: int = 0):
+    """The data pipeline's tokens (JAX's) for a SMOKE loss: (tokens (B, L)
+    int32 numpy, JAX's batch, the port's batch), JAX's modality stubs in
+    both (``stubs``)."""
+    from repro.data.pipeline import DataConfig, global_batch_np
+
+    toks = global_batch_np(DataConfig(vocab=cfg.vocab, seq_len=l, global_batch=b), step)
+    kw_j, kw_t = stubs(cfg, b)
+    return (toks, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks), **kw_j},
+            {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(toks), **kw_t})
+
+
+def loss_and_grads_both(arch: str, b: int = 2, l: int = 32):
+    """``loss_fn`` and every parameter's gradient of ``arch`` at SMOKE in
+    both packages, from JAX's parameters carried across: JAX by
+    ``jax.value_and_grad`` (``jax_mode``: op by op for the MoE families),
+    the port by ``backward()``. Returns a dict: the losses and metrics of
+    both, the gradients of both keyed by JAX path (None where the port
+    gave none), the port's logits for the tolerance, and the router flips (an
+    empty array without a router)."""
+    cj, ct = cfgs(arch)
+    jm, tm = jreg.get_module(cj), treg.get_module(ct)
+    pj, pt = params(arch)
+    _, bj, bt = train_batch(cj, b, l)
+    flat_t = flat_params_t(pt)
+    for t in flat_t.values():
+        t.requires_grad_(True)
+    vg = jax.value_and_grad(lambda p: jm.loss_fn(p, bj, cj), has_aux=True)
+    moe = cj.family in ("moe", "mla_moe")
+    with router_log() as log, jax_mode(cj):
+        (lj, mj), gj = (vg if moe else jax.jit(vg))(pj)
+        lt, mt = tm.loss_fn(pt, bt, ct)
+        lt.backward()
+        flips = router_flips(log) if moe else np.zeros(0, np.int64)
+    kw_t = {k: v for k, v in bt.items() if k in ("frames", "patch_embeds")}
+    with torch.no_grad():
+        lg_t = tm.forward(pt, bt["tokens"], ct, **kw_t)[0]
+    return {"loss": (float(lt.detach()), float(lj)),
+            "ce": (float(mt["ce"].detach()), float(mj["ce"])),
+            "aux": (float(mt["aux"].detach()), float(mj["aux"])),
+            "grads": ({k: (None if t.grad is None else t.grad.numpy()) for k, t in flat_t.items()},
+                      flat_params(gj)),
+            "logits": lg_t.numpy()[:, :-1], "flips": flips, "family": cj.family,
+            "router_log": log}
+
+
+def assert_loss_and_grads_close(arch: str, b: int = 2, l: int = 32):
+    """The port's ``loss_fn`` against JAX's: the cross-entropy within twice
+    the logits' tolerance (``lse`` and the label's logit each move by at
+    most the largest logit difference; the z-loss adds 2e-4 |lse| of it),
+    the MoE load-balance loss within the router's bound (each probability
+    within ``expm1(2 delta)`` relative, ``router_margin_bound``'s delta at 4
+    input ulps), and each gradient within :data:`GRAD_TOL_ULPS` normwise,
+    every leaf differentiable. Returns the worst normwise reading."""
+    r = loss_and_grads_both(arch, b, l)
+    assert r["flips"].size == 0, f"router flips at tokens {r['flips']}: not comparable"
+    tol = float(ttr.logit_tolerance(torch.as_tensor(r["logits"])).max())
+    lse_max = float(np.abs(np.log(np.exp(r["logits"].astype(np.float64)).sum(-1))).max())
+    ce_t, ce_j = r["ce"]
+    assert abs(ce_t - ce_j) <= (2 + 2e-4 * lse_max) * tol, (ce_t, ce_j, tol)
+    aux_t, aux_j = r["aux"]
+    aux_tol = 0.0
+    if r["family"] in ("moe", "mla_moe"):
+        deltas = [((4 * 2.0**-8 + (x.shape[-1] + 2) * 2.0**-24)
+                   * (np.abs(x).astype(np.float64) @ np.abs(w).astype(np.float64))).max()
+                  for x, w, _, _ in r["router_log"]["jax"]]
+        aux_tol = 2 * np.expm1(2 * max(deltas)) * abs(aux_j) + 1e-6 * abs(aux_j)
+        assert abs(aux_t - aux_j) <= aux_tol, (aux_t, aux_j, aux_tol)
+    else:
+        assert aux_t == aux_j == 0.0
+    loss_t, loss_j = r["loss"]
+    assert abs(loss_t - loss_j) <= (2 + 2e-4 * lse_max) * tol + 0.01 * aux_tol + 1e-6
+    g_t, g_j = r["grads"]
+    assert set(g_t) == set(g_j)
+    worst = 0.0
+    for k, want in g_j.items():
+        want = np.asarray(want, np.float32)
+        got = g_t[k]
+        if got is None:  # the port's leaf took no part: JAX's gradient must be zero
+            assert not want.any(), f"{arch}: {k} has no gradient in the port"
+            continue
+        assert got.shape == want.shape and np.all(np.isfinite(got)), k
+        rel = np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+        worst = max(worst, rel)
+        assert rel <= GRAD_TOL_ULPS * 2.0**-8, f"{arch}: d{k} normwise {rel:.3g}"
+    return worst

@@ -1,6 +1,7 @@
 """Kernel vs plain version on the card: K1, K4 and K5 bit for bit, K2, K3,
 K6 and K7 by their ``check_against_plain`` (derived rounding bound and
-normwise limit), and planted faults that those checks must catch. Marked
+normwise limit), K7b (K7's gradient) by ``check_bwd_against_plain``, and
+planted faults that those checks must catch. Marked
 ``cuda``: a CUDA kernel has no CPU mode, so these skip without a GPU. The file imports no JAX; on a machine
 with the card and without JAX run it as
 
@@ -915,3 +916,113 @@ def test_lm_checks_flag_a_wrong_output(monkeypatch, which, scale):
     else:
         with pytest.raises(AssertionError, match="disagrees"):
             check()
+
+
+# --------------------------------------------------------------------------
+# K7b (K7's gradient, for training)
+# --------------------------------------------------------------------------
+BWD_CASES = [  # b, h, hkv, lq, lk, causal, heads_last
+    (2, 8, 2, 200, 200, True, True),     # rep 4, causal, ragged against the 32-row tiles
+    (2, 6, 2, 100, 300, False, False),   # cross-attention, Lq < Lk
+    (2, 4, 4, 300, 65, True, False),     # Lq > Lk: 235 rows see no key
+    (1, 8, 1, 65, 190, True, True),      # rep 8, Lq < Lk causal (the offset mask)
+    (2, 24, 8, 256, 256, True, True),    # llama3.2-3b's heads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_kernel_within_rounding_bound(cuda_device, case, dtype, dh):
+    b, h, hkv, lq, lk, causal, heads_last = case
+    args = tfa.random_bwd_inputs(30, b, h, hkv, lq, lk, dh, dtype, causal=causal,
+                                 heads_last=heads_last, device=cuda_device)
+    before = tfa.flash_attention_bwd.launches
+    res = tfa.check_bwd_against_plain(args, {"causal": causal})
+    assert tfa.flash_attention_bwd.launches == before + 1
+    assert res["max_ratio"] <= 1.0
+    if causal and lq > lk:
+        dq, _, _ = tfa.flash_attention_bwd(*args, causal=causal)
+        assert not dq[:, :, :lq - lk].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_lse_output_keeps_the_bits(cuda_device, dtype, causal):
+    """K7 with its logsumexp output writes the same output bits as without
+    it (serving's launch), and the logsumexp of its plain version within
+    the forward's relative bound (+inf on the rows that see no key)."""
+    q, k, v = tfa.random_inputs(31, 2, 8, 2, 300, 200, 128, dtype, heads_last=True,
+                                device=cuda_device)
+    plain_out = tfa.flash_attention(q, k, v, causal=causal)
+    out, lse, _ = tfa._launch(q, k, v, causal, None, with_lse=True)
+    assert torch.equal(out.view(torch.int32), plain_out.view(torch.int32))
+    want = tfa.lse_ref(q, k, causal=causal)
+    finite = torch.isfinite(want)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert (lse[~finite] > 0).all()
+    rel = tfa.rounding_bound(*tfa._gqa(q, k, v), tfa._valid(300, 200, causal, cuda_device),
+                             1 / 128**0.5, relative=True)[..., 0]
+    err = (lse - want).abs()[finite]
+    assert bool((err <= rel[finite] * (1 + want.abs()[finite])).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", tfa.BACKWARD_FAULTS)
+def test_flash_bwd_check_fails_a_planted_fault(cuda_device, monkeypatch, fault):
+    monkeypatch.setattr(tfa, "backward_params", tfa.planted_backward_params(fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        tfa.check_bwd_against_plain(
+            tfa.random_bwd_inputs(32, 2, 8, 2, 128, 128, 64, torch.bfloat16,
+                                  device=cuda_device), {"causal": True})
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_is_deterministic(cuda_device):
+    args = tfa.random_bwd_inputs(33, 2, 24, 8, 512, 512, 128, torch.bfloat16, heads_last=True,
+                                 device=cuda_device)
+    first = tfa.flash_attention_bwd(*args)
+    for _ in range(3):
+        for a, b in zip(first, tfa.flash_attention_bwd(*args)):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_attention_op_launches_k7_and_k7b(cuda_device, dtype):
+    """An input that needs a gradient makes K7's call an autograd op: one
+    K7 launch (with the logsumexp), one K7b call in the backward, whose
+    gradients autograd returns cast to the inputs' dtype."""
+    q, k, v = (t.requires_grad_() for t in tfa.random_inputs(
+        34, 2, 8, 2, 160, 160, 64, dtype, heads_last=False, device=cuda_device))
+    f0, b0 = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+    out = tfa.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "AttentionBackward"
+    dout = torch.randn_like(out)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert tfa.flash_attention.launches == f0 + 1
+    assert tfa.flash_attention_bwd.launches == b0 + 1
+    lse = tfa.lse_ref(q.detach(), k.detach())
+    want = tfa.flash_attention_bwd(q.detach(), k.detach(), v.detach(), out.detach(),
+                                   tfa._launch(q.detach(), k.detach(), v.detach(), True, None,
+                                               with_lse=True)[1], dout)
+    for g, w, t in zip(grads, want, (q, k, v)):
+        assert g.dtype == t.dtype
+        assert torch.equal(g, w.to(dtype))
+    assert torch.isfinite(lse[torch.isfinite(lse)]).all()
+
+
+@pytest.mark.cuda
+def test_smoke_model_trains_through_k7_and_k7b(cuda_device):
+    from repro_torch.launch.train import TrainRun
+
+    f0, b0 = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+    out = TrainRun(arch="llama3.2-3b", smoke=True, steps=3, batch=2, seq=128,
+                   device="cuda", log_every=100).run()
+    assert all(np.isfinite(out["losses"])) and len(out["losses"]) == 3
+    assert tfa.flash_attention.launches - f0 == 2 * 3  # a layer a step
+    assert tfa.flash_attention_bwd.launches - b0 == 2 * 3
+    for name in ("wq", "wk", "wv"):
+        assert out["params"]["layers"]["attn"][name].grad.abs().sum() > 0

@@ -14,7 +14,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 #: The port's subpackages; each must be present in PORT_FILES.
 SUBPACKAGES = ("core", "kernels", "models", "configs", "launch", "checkpoint", "runtime",
-               "sph")
+               "sph", "data", "optim")
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)

@@ -1,6 +1,8 @@
-"""The port's heartbeats and straggler watchdog: ports of
-``tests/test_runtime.py`` (``plan_elastic_mesh`` goes with training),
-plus the heartbeat file format shared with the JAX package."""
+"""The port's fault-tolerance runtime: ports of ``tests/test_runtime.py``
+(heartbeats, the straggler watchdog, ``plan_elastic_mesh``), the
+heartbeat file format shared with the JAX package, and
+``plan_elastic_mesh`` and ``TrainGuard`` against JAX's on the same
+inputs."""
 import json
 import os
 import time
@@ -9,7 +11,7 @@ import pytest
 
 from repro.runtime import fault_tolerance as jft
 from repro_torch.runtime.fault_tolerance import (
-    HeartbeatMonitor, HeartbeatWriter, StragglerWatchdog)
+    HeartbeatMonitor, HeartbeatWriter, StragglerWatchdog, TrainGuard, plan_elastic_mesh)
 from test_torch_helpers import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
@@ -112,3 +114,47 @@ def test_watchdog_matches_jax_on_a_trace():
     a, b = StragglerWatchdog(patience=2), jft.StragglerWatchdog(patience=2)
     assert [a.observe(t) for t in times] == [b.observe(t) for t in times]
     assert (a.ema, a.consecutive_slow, a.flagged) == (b.ema, b.consecutive_slow, b.flagged)
+
+
+@pytest.mark.parametrize("n,mp,gb", [(256, 16, 256), (240, 16, 256), (17, 16, 256), (8, 16, 256),
+                                     (96, 8, 48), (1000, 16, 100), (1, 1, 7), (64, 4, 30)])
+def test_plan_elastic_mesh_is_jaxs(n, mp, gb):
+    got = plan_elastic_mesh(n, model_parallel=mp, global_batch=gb)
+    assert got == jft.plan_elastic_mesh(n, model_parallel=mp, global_batch=gb)
+    assert got["mesh_shape"][0] * mp + got["drop_devices"] == n or n < mp
+    assert gb % got["mesh_shape"][0] == 0
+
+
+def test_plan_elastic_mesh_defaults():
+    plan = plan_elastic_mesh(256)
+    assert plan == {"mesh_shape": (16, 16), "axis_names": ("data", "model"), "drop_devices": 0,
+                    "per_device_batch": 16}
+    assert plan_elastic_mesh(240)["mesh_shape"] == (8, 16)  # 15 rounds down to a divisor of 256
+
+
+def test_train_guard_matches_jax(tmp_path):
+    """The same step times through both packages' guards (each with its
+    own heartbeat directory and monitor expecting two hosts, one of which
+    never beats) give the same records, step by step."""
+    times = [1.0, 1.05, 0.98, 3.0, 3.1, 2.9, 1.0, 5.0]
+    guards = []
+    for mod, sub in ((jft, "jax"), (None, "port"), ):
+        d = str(tmp_path / sub)
+        cls = (mod.TrainGuard, mod.HeartbeatWriter, mod.StragglerWatchdog,
+               mod.HeartbeatMonitor) if mod else (TrainGuard, HeartbeatWriter,
+                                                  StragglerWatchdog, HeartbeatMonitor)
+        guards.append(cls[0](heartbeat=cls[1](d, 0), watchdog=cls[2](),
+                             monitor=cls[3](d), expected_hosts=2))
+    for step, t in enumerate(times):
+        want, got = guards[0].on_step(step, t), guards[1].on_step(step, t)
+        assert got == want, (step, got, want)
+        with open(tmp_path / "port" / "host_0.hb") as f:
+            assert json.load(f)["step"] == step
+    assert got["dead_hosts"] == [1] and got["needs_resize"]
+    assert guards[1].watchdog.flagged == guards[0].watchdog.flagged
+
+
+def test_train_guard_without_monitor(tmp_path):
+    g = TrainGuard(heartbeat=HeartbeatWriter(str(tmp_path), 0), watchdog=StragglerWatchdog())
+    assert g.on_step(0, 1.0) == {"straggler": False, "straggler_flagged": False,
+                                 "dead_hosts": [], "needs_resize": False}
