@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,9    # build + llama3.2-3b served (K6, K7)
     python3 chip_smoke.py --phases 1,14   # build + the other model families served
     python3 chip_smoke.py --phases 1,15   # build + llama3.2-3b trained (K7, K7b)
+    python3 chip_smoke.py --phases 1,15 --parent build/parent  # K7b beside an earlier tree's
     python3 chip_smoke.py --phases 1,9 --parent build/parent  # K7 beside an earlier tree's
     python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1, K3, K4, K5 beside it
     python3 chip_smoke.py --phases 1,8 --parent build/parent    # K3, K4 and K5 beside it
@@ -237,11 +238,12 @@ Phases (each prints its own lines and raises on failure):
      readings: ms a step by part (forward, backward, optimizer), tokens/s,
      peak memory (B cut to 1 on an out-of-memory, and said so), K7b timed
      at the last layer's recorded inputs beside its plain version, its
-     bound (``k7b_work``) and the backward of
-     ``scaled_dot_product_attention``; (e) planted faults: K7b's
-     ``gqa_first_head``, ``causal_plus_one`` and ``d_from_do`` -> (a) at
-     the depth cut, K7 launched without its autograd op (no gradient to
-     wq, wk, wv) -> (b).
+     bound (``k7b_work``), the backward of
+     ``scaled_dot_product_attention`` and the design of ``--parent`` when
+     given, and the HGMMA count of each bf16 K7b kernel's SASS by Dh;
+     (e) planted faults: K7b's ``gqa_first_head``, ``causal_plus_one``,
+     ``d_from_do`` and ``ds_hi_only`` -> (a) at the depth cut, K7
+     launched without its autograd op (no gradient to wq, wk, wv) -> (b).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -1827,12 +1829,47 @@ def sass_count(kernel: str, instr: str) -> dict:
             for name, body in sass_functions().items() if kernel in name}
 
 
-def hgmma_counts() -> dict:
-    """HGMMA (wgmma) instructions in the SASS of each bf16 K7 instantiation
-    of the built library, by head dim."""
-    counts = sass_count("flash_wgmma_kernel", "HGMMA")
-    return dict(sorted((int(name.split("flash_wgmma_kernelILi")[1].split("E")[0]), n)
+def hgmma_counts(kernel: str = "flash_wgmma_kernel") -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each instantiation of the
+    bf16 kernel ``kernel`` (K7's by default) of the built library, by head
+    dim."""
+    counts = sass_count(kernel, "HGMMA")
+    return dict(sorted((int(name.split(kernel + "ILi")[1].split("E")[0]), n)
                        for name, n in counts.items()))
+
+
+#: K7b's bf16 (tensor-core) kernels, whose SASS must hold HGMMA at every Dh.
+K7B_WGMMA_KERNELS = ("dq_wgmma_kernel", "dkdv_wgmma_kernel")
+
+
+def k7b_hgmma() -> str:
+    """A clause giving the HGMMA count of each bf16 K7b kernel by Dh;
+    raises if an instantiation of Dh 16, 32, 64 or 128 has none."""
+    parts = []
+    for kernel in K7B_WGMMA_KERNELS:
+        counts = hgmma_counts(kernel)
+        if sorted(counts) != [16, 32, 64, 128] or not all(counts.values()):
+            raise AssertionError(f"{kernel}: an instantiation without HGMMA: {counts}")
+        parts.append(f"{kernel} " + ", ".join(f"{dh} {n}" for dh, n in counts.items()))
+    return "; HGMMA instructions in the SASS by Dh: " + "; ".join(parts)
+
+
+def kernel_split(fn, n: int = 5) -> str:
+    """A clause giving the device time a call of ``fn`` spends in each of
+    the port's kernels (``torch.profiler`` over ``n`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    parts = sorted(((e.key.split("namespace)::", 1)[1].split("(")[0],
+                     e.self_device_time_total / 1e3 / n)
+                    for e in device_events(prof) if "namespace)::" in e.key),
+                   key=lambda x: -x[1])
+    if not parts:  # a reading, not a gate
+        return "; device time a call by kernel: not recorded by the profiler"
+    return "; device time a call by kernel: " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in parts)
 
 
 def wide_stores(kernel: str, instr: str) -> str:
@@ -4241,10 +4278,12 @@ def p15_main(gpu: str, batch: int) -> dict:
     return res
 
 
-def p15_readings(rec: tuple, gpu: str) -> dict:
+def p15_readings(rec: tuple, gpu: str, parent: Path | None = None) -> dict:
     """K7b at the main path's first recorded call (the last layer's):
     against its plain version, timed in a CUDA graph beside the plain
-    version, its bound and the library's backward."""
+    version, its bound, the library's backward and the design in
+    ``parent`` (parent, this, this, parent); the HGMMA instructions of its
+    bf16 kernels (raises if one has none) and its device time by kernel."""
     from repro_torch.kernels import flash_attention as k7
 
     a, kw, _ = rec
@@ -4263,14 +4302,17 @@ def p15_readings(rec: tuple, gpu: str) -> dict:
     fp32_ms = 5 * 2 * a[0].shape[-1] * a[0].shape[0] * a[0].shape[1] * pairs \
         / H100_FP32_OPS_PER_S * 1e3
     log(f"[15] K7b flash_attention_bwd {tuple(a[0].shape)} {a[0].dtype} (the main path's "
-        f"first call, the last layer's): {ms:.4f} ms a call (2 kernels) in a CUDA graph ({eager_ms:.4f} "
+        f"first call, the last layer's): {ms:.4f} ms a call "
+        f"({3 if a[0].dtype == torch.bfloat16 else 2} kernels) in a CUDA graph ({eager_ms:.4f} "
         f"ms one by one from Python; plain {plain_ms:.4f} ms), bound {bms:.4f} ms by {by} "
         f"({pairs} pairs; {tensor_ops:.4g} ops at bf16 tensor-core 989 TFLOP/s, {ops_n:.4g} at "
         f"fp32 67 TFLOP/s; {nbytes} bytes at 3.35 TB/s; all 10 Dh at the fp32 rate "
         f"{fp32_ms:.4f} ms); library (scaled_dot_product_attention's backward, fp32, causal, "
         f"GQA) {lib_ms:.4f} ms; against the plain version: max|err| {c['max_abs_err']:.3e}, "
         f"max err/bound {c['max_ratio']:.3e}, normwise {c['normwise']:.3e} (limit "
-        f"{k7.BWD_NORMWISE_LIMIT:g}) ({gpu})")
+        f"{k7.BWD_NORMWISE_LIMIT:g}){parent_times(parent, 'k7b', a, kw, ms, reps=10)}"
+        f"{k7b_hgmma() + kernel_split(lambda: fn(*a, **kw)) if P15_DEVICE == 'cuda' else ''} "
+        f"({gpu})")
     return {"ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms, "bound_ms": bms, "bound_by": by,
             "max_abs_err": c["max_abs_err"]}
 
@@ -4307,8 +4349,9 @@ def p15_planted_faults(gpu: str) -> list:
     return missed
 
 
-def phase15_training(results: dict) -> None:
-    """LM training on the card: gates (a)-(e) and the readings."""
+def phase15_training(results: dict, parent: Path | None = None) -> None:
+    """LM training on the card: gates (a)-(e) and the readings (K7b
+    beside the design in ``parent`` when given)."""
     from repro_torch.kernels import flash_attention as k7
 
     t_phase = time.perf_counter()
@@ -4373,7 +4416,7 @@ def phase15_training(results: dict) -> None:
         f" max|err| {a['max_abs_err']:.3e}; {time.perf_counter() - t0:.1f} s ({gpu})")
     if a["n"] != cfg.n_layers:
         raise AssertionError(f"(a) {a['n']} K7b calls recorded, expected {cfg.n_layers}")
-    rd = p15_readings(main["records"][0], gpu)
+    rd = p15_readings(main["records"][0], gpu, parent)
     launches = main["launches"]["k7b"]
     del main
 
@@ -4459,8 +4502,8 @@ def main() -> int:
     ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all but 6)")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout of an earlier tree whose K1, K3-K5 and K7 phases 3, 8 "
-                         "and 9 time beside this tree's")
+                    help="a checkout of an earlier tree whose K1, K3-K5, K7 and K7b phases "
+                         "3, 8, 9 and 15 time beside this tree's")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -4499,7 +4542,7 @@ def main() -> int:
     if 14 in phases:
         phase14_families()
     if 15 in phases:
-        phase15_training(results)
+        phase15_training(results, args.parent)
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
     if 1 not in phases:
         log(gpu_line())

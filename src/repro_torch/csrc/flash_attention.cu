@@ -43,6 +43,8 @@
 // Overlapping a tile's softmax with the previous tile's P V inside one
 // warpgroup needs more registers than the 168 a thread of this CTA gets
 // (ptxas then serializes the wgmmas; it measured slower, PERF.md PR 17).
+// The barrier, TMA and wgmma helpers and the split live in hopper.cuh, shared
+// with K7b.
 //
 // fp32 inputs keep the CUDA-core kernel (namespace simt): bf16 tensor cores
 // cannot take fp32 q and k exactly. One block per (32-row query tile,
@@ -60,6 +62,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -218,6 +222,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, float* out, floa
 // --------------------------------------------------------------------------
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BQ = 128;                   // query rows per CTA
 constexpr int WG_ROWS = 64;               // query rows per consumer warpgroup
 constexpr int BK = 64;                    // keys per K/V tile
@@ -226,12 +232,7 @@ constexpr int CONSUMERS = 2 * 128;        // two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
 
 template <int DH>
-struct Tile {
-  static constexpr int SW = DH * 2 < 128 ? DH * 2 : 128;  // swizzle span = bytes of a box row
-  static constexpr int SWE = SW / 2;                      // bf16 elements of a box row
-  static constexpr int NCB = DH / SWE;                    // boxes across Dh
-  static constexpr int KPB = SW / 32;                     // k16 steps within a box
-  static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;  // wgmma descriptor code
+struct Tile : Swizzle<DH> {  // SW, SWE, NCB, KPB, LAYOUT (hopper.cuh)
   static constexpr int Q_BYTES = BQ * DH * 2;
   static constexpr int KV_BYTES = BK * DH * 2;  // one of K, V
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
@@ -239,171 +240,6 @@ struct Tile {
   // 1024 of slack to align the tiles to the 128 B swizzle's 1024 B period
   static constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES + BAR_BYTES;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait for the phase of the given parity to complete. A pipeline stalled for
-// ~17 s (2^35 cycles) traps, so a fault surfaces as a failed launch, not a hang.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 35)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16 B units) and the swizzle code (1: 128 B, 2: 64 B, 3: 32 B).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              int layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (static_cast<uint64_t>(layout) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma (between its issue and its wait).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// One k16 step of S = Q K^T: A (Q) and B (K) from shared memory, both K-major;
-// ``accumulate`` 0 overwrites d (the first step of a tile).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// One k16 step of O += P V at N = Dh: A (a bf16 part of P) from registers, B (V) from
-// shared memory, MN-major (transposed); always accumulates.
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-// Three bf16 parts of an fp32 pair, packed as the A fragment wants them (the
-// lower column in the low half): hi + mid + lo == x for |x| >= 2^-110.
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float r0 = x0 - __low2float(h), r1 = x1 - __high2float(h);
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  mid = *reinterpret_cast<const uint32_t*>(&m);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -421,36 +257,6 @@ __device__ __forceinline__ int tiles_for(int row_lo, int row_end, int Lk, int of
   int last = Lk - 1;
   if (p.causal) last = min(last, row_end - 1 + offset);
   return last < 0 ? 0 : last / BK + 1;
-}
-
-// Issue S = Q K^T of one tile (Dh / 16 k16 steps) for this warpgroup's 64 rows.
-template <int DH>
-__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t qa, uint32_t ks) {
-  using T = Tile<DH>;
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const uint32_t koff = (kk % T::KPB) * 32;  // k16 step within a swizzled box
-    wgmma_ss_n64(sc,
-                 smem_desc(qa + (kk / T::KPB) * BQ * T::SW + koff, 16, 8 * T::SW, T::LAYOUT),
-                 smem_desc(ks + (kk / T::KPB) * BK * T::SW + koff, 16, 8 * T::SW, T::LAYOUT),
-                 kk > 0);
-  }
-}
-
-// Issue O += P V of one tile: per 16 keys, the hi, mid and lo parts of P.
-template <int DH>
-__device__ __forceinline__ void issue_pv(float (&o)[DH / 2], const uint32_t (&pa)[3][BK / 16][4],
-                                         uint32_t vs, int hi_only) {
-  using T = Tile<DH>;
-#pragma unroll
-  for (int kc = 0; kc < BK / 16; ++kc) {
-    const uint64_t dv = smem_desc(vs + kc * 16 * T::SW, BK * T::SW, 8 * T::SW, T::LAYOUT);
-    wgmma_rs(o, pa[0][kc], dv);
-    if (!hi_only) {
-      wgmma_rs(o, pa[1][kc], dv);
-      wgmma_rs(o, pa[2][kc], dv);
-    }
-  }
 }
 
 struct Rows {
@@ -496,18 +302,6 @@ __device__ __forceinline__ float2 online_softmax(float (&sc)[BK / 2], Rows& r, i
   r.m0 = mn0;
   r.m1 = mn1;
   return corr;
-}
-
-// P (exp(s - m) of one tile, fp32) as three bf16 A fragments of m64nDHk16:
-// the accumulator fragment of S is the A fragment's layout.
-__device__ __forceinline__ void split_p(const float (&sc)[BK / 2], uint32_t (&pa)[3][BK / 16][4]) {
-#pragma unroll
-  for (int kc = 0; kc < BK / 16; ++kc) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      split3(sc[8 * kc + 2 * j], sc[8 * kc + 2 * j + 1], pa[0][kc][j], pa[1][kc][j],
-             pa[2][kc][j]);
-  }
 }
 
 template <int DH>
@@ -584,17 +378,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       float sc[BK / 2];
       uint32_t pa[3][BK / 16][4];
       wgmma_fence();
-      issue_qk<DH>(sc, qa, k_tile(t));
+      issue_ss<DH>(sc, qa, BQ, k_tile(t), BK, false);  // S = Q K^T
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
       const float2 corr = online_softmax(sc, r, t * BK, row_lo, Lq, Lk, offset, p);
 #pragma unroll
       for (int i = 0; i < DH / 2; ++i) o[i] *= (i & 2) ? corr.y : corr.x;
-      split_p(sc, pa);
+      split_frag(sc, pa);
       fence_regs(o);
       wgmma_fence();
-      issue_pv<DH>(o, pa, k_tile(t) + T::KV_BYTES, p.p_hi_only);
+      issue_split<DH>(o, pa, k_tile(t) + T::KV_BYTES, BK, p.p_hi_only);  // O += P V
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(o);
@@ -616,48 +410,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     *reinterpret_cast<float2*>(ob + static_cast<long long>(row) * DH + 8 * (i / 4) + r.cq) =
         make_float2(o[i] * inv, o[i + 1] * inv);
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// A 4-d map (Dh, L, heads, B) of a bf16 view with element strides st = (b, h, l),
-// read in boxes of (swe, rows, 1, 1); rows past L read as zeros.
-template <int DH>
-bool make_map(CUtensorMap* map, const void* base, int L, int heads, int B, const long long* st,
-              int rows) {
-  using T = Tile<DH>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH), static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[2]) * 2,
-                                 static_cast<cuuint64_t>(st[1]) * 2,
-                                 static_cast<cuuint64_t>(st[0]) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(T::SWE), static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = T::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                              : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DH>

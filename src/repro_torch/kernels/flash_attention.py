@@ -22,7 +22,10 @@ is the autograd op :class:`Attention`. Its forward launches K7 with each
 row's logsumexp as a second output; its backward launches the hand-written
 gradient :func:`flash_attention_bwd` (``csrc/flash_attention_bwd.cu``),
 the counterpart of XLA's autodiff of JAX's plain ``sdpa_chunked``, held to
-:func:`flash_attention_bwd_ref` within :func:`rounding_bound_bwd`.
+:func:`flash_attention_bwd_ref` within :func:`rounding_bound_bwd`. Its
+bf16 path runs on the tensor cores with dO, P and dS split exactly into
+three bf16 parts; :func:`flash_attention_bwd_split_ref` mirrors that
+scheme in plain torch.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
-_BF16_ROWS = 128  # query rows per CTA of the bf16 kernel
+_BF16_ROWS = 128  # query rows per CTA of the bf16 kernel (K7, and K7b's dQ kernel)
+_BWD_KEYS = 64  # keys per CTA of K7b's bf16 dK/dV kernel; lse and D rows padded to it
 _U32 = 2.0**-24  # fp32 unit roundoff
 
 
@@ -424,17 +428,17 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
 class BwdParams(ctypes.Structure):
     _fields_ = [("scale", ctypes.c_float), ("causal", ctypes.c_int),
                 ("causal_shift", ctypes.c_int), ("first_head_only", ctypes.c_int),
-                ("d_from_do", ctypes.c_int)]
+                ("d_from_do", ctypes.c_int), ("ds_hi_only", ctypes.c_int)]
 
 
 def backward_params(*, scale: float, causal: bool) -> BwdParams:
     """K7b's run-time parameters; the fault switches are 0
     (:func:`planted_backward_params` plants them)."""
-    return BwdParams(scale, int(causal), 0, 0, 0)
+    return BwdParams(scale, int(causal), 0, 0, 0, 0)
 
 
 #: The faults :func:`planted_backward_params` plants in K7b.
-BACKWARD_FAULTS = ("gqa_first_head", "causal_plus_one", "d_from_do")
+BACKWARD_FAULTS = ("gqa_first_head", "causal_plus_one", "d_from_do", "ds_hi_only")
 
 
 def planted_backward_params(fault: str):
@@ -442,8 +446,9 @@ def planted_backward_params(fault: str):
     ``gqa_first_head``: dK and dV take only the first query head of each
     kv head's group; ``causal_plus_one``: the backward's causal mask lets
     each query see one future key; ``d_from_do``: D_i = sum_d dO_id, O
-    left out. A check rebinds ``backward_params`` to it, and must then
-    fail."""
+    left out; ``ds_hi_only`` (bf16 inputs): dQ and dK take dS's bf16 hi
+    part alone, as a bf16 FlashAttention backward rounds it. A check
+    rebinds ``backward_params`` to it, and must then fail."""
     if fault not in BACKWARD_FAULTS:
         raise ValueError(f"unknown fault {fault!r}, not in {BACKWARD_FAULTS}")
     clean = backward_params
@@ -451,7 +456,7 @@ def planted_backward_params(fault: str):
     def faulty(**kw) -> BwdParams:
         p = clean(**kw)
         setattr(p, {"gqa_first_head": "first_head_only", "causal_plus_one": "causal_shift",
-                    "d_from_do": "d_from_do"}[fault], 1)
+                    "d_from_do": "d_from_do", "ds_hi_only": "ds_hi_only"}[fault], 1)
         return p
 
     return faulty
@@ -466,8 +471,11 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     :func:`lse_ref`; +inf where a row sees no key) and dO.
 
     CPU tensors take :func:`flash_attention_bwd_ref`; CUDA tensors launch
-    the two kernels of ``csrc/flash_attention_bwd.cu`` (D and dQ, then dK
-    and dV) or raise. ``flash_attention_bwd.launches`` counts calls.
+    the kernels of ``csrc/flash_attention_bwd.cu`` or raise: for bf16 the
+    tensor-core path (D and dO's split, dQ, dK and dV; a view TMA cannot
+    read in place, :func:`tma_addressable`, is copied first), for fp32
+    the CUDA-core kernels (D and dQ, dK and dV).
+    ``flash_attention_bwd.launches`` counts calls.
     """
     dev = q.device
     if dev.type == "cpu":
@@ -484,9 +492,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, h, lq):
         raise ValueError(f"out {tuple(out.shape)}, dout {tuple(dout.shape)}, lse "
                          f"{tuple(lse.shape)} do not match q {tuple(q.shape)}")
+    if q.dtype == torch.bfloat16:
+        if -(-lk // _BWD_KEYS) > 65535:
+            raise ValueError(f"Lk = {lk} exceeds the bf16 backward's grid y limit")
+        q, k, v = (t if tma_addressable(t) else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     scale = float(scale if scale is not None else 1.0 / math.sqrt(dh))
     out, dout, lse = (t.float().contiguous() for t in (out, dout, lse))
-    dsum = torch.empty((b, h, lq), dtype=torch.float32, device=dev)
+    scratch = torch.empty(_bwd_scratch_words(q.dtype, b, h, lq, dh), dtype=torch.float32,
+                          device=dev)
     dq = torch.empty((b, h, lq, dh), dtype=torch.float32, device=dev)
     dk = torch.empty((b, hkv, lk, dh), dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
@@ -495,7 +509,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _bwd_entry()(_KIND[q.dtype], dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                          out.data_ptr(), dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, hkv, lq, lk,
                           ctypes.addressof(strides), ctypes.addressof(params), stream)
     _build.check_rc(rc, "flash_attention_bwd")
@@ -505,6 +519,53 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
 
 flash_attention_bwd.launches = 0
 _BWD_WRAPPER = flash_attention_bwd
+
+
+def _bwd_scratch_words(dtype: torch.dtype, b: int, h: int, lq: int, dh: int) -> int:
+    """fp32 words of K7b's scratch: D (B, H, Lq) for fp32 inputs; for bf16
+    the padded lse and D (2, B, H, Lpad), Lpad = Lq rounded up to
+    ``_BWD_KEYS``, then dO's three bf16 planes (3, B, H, Lq, Dh)."""
+    if dtype == torch.float32:
+        return b * h * lq
+    lpad = -(-lq // _BWD_KEYS) * _BWD_KEYS
+    return 2 * b * h * lpad + 3 * b * h * lq * dh // 2
+
+
+def flash_attention_bwd_split_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                                  scale: float | None = None,
+                                  ds_hi_only: bool = False) -> tuple:
+    """Plain mirror of K7b's tensor-core scheme for bf16 q, k, v: the
+    formulas of :func:`flash_attention_bwd_ref`, with every operand that is
+    not bf16 already fed as its exact three-part bf16 split
+    (:func:`split_bf16x3`) and each product of parts summed in fp32: dP =
+    Σ_p dO_p vᵀ; dV = P dO over the six cross terms of P's and dO's parts
+    down to 2^-24 (hi·hi, hi·mid, mid·hi, hi·lo, mid·mid, lo·hi); dQ and
+    dK over dS's three parts (its hi part alone with ``ds_hi_only``, the
+    planted fault). It models the split, not ``wgmma``'s order of
+    accumulation."""
+    lq, lk, dh = q.shape[2], k.shape[2], q.shape[3]
+    hkv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qf, kf, vf = _gqa(q, k, v)
+    do, of = dout.float(), out.float()
+
+    def parts(x):
+        return [t.float() for t in split_bf16x3(x)]
+
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.where(_valid(lq, lk, causal, q.device), torch.exp(s - lse[..., None]), 0.0)
+    d = (do * of).sum(dim=-1)
+    do3 = parts(do)
+    dp = sum(torch.einsum("bhqd,bhkd->bhqk", x, vf) for x in do3)
+    ds = p * (dp - d[..., None])
+    p3, ds3 = parts(p), parts(ds)
+    if ds_hi_only:
+        ds3 = ds3[:1]
+    dq = sum(torch.einsum("bhqk,bhkd->bhqd", x, kf) for x in ds3) * scale
+    dk = sum(torch.einsum("bhqk,bhqd->bhkd", x, qf) for x in ds3) * scale
+    dv = sum(torch.einsum("bhqk,bhqd->bhkd", p3[i], do3[j])
+             for i, j in ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0)))
+    return dq, _group_sum(dk, hkv), _group_sum(dv, hkv)
 
 
 def rounding_bound_bwd(q, k, v, out, lse, dout, *, causal: bool = True,

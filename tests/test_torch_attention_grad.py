@@ -6,8 +6,10 @@ not, Lq != Lk, rep > 1 and fully masked rows; the autograd op
 ``Attention`` that ``flash_attention`` becomes when an input needs a
 gradient, and the serving path, which it leaves as it was; the
 backward's rounding bound against planted faults written in plain torch
-(the card tests plant the same faults in the kernel); and the layer
-slice that gathers the stacked layers' gradients.
+(the card tests plant the same faults in the kernel); the plain mirror
+of the bf16 kernel's tensor-core scheme (``flash_attention_bwd_split_ref``:
+dO, P and dS split exactly into three bf16 parts) within the same bound;
+and the layer slice that gathers the stacked layers' gradients.
 
 Tolerance: ``rounding_bound_bwd`` (elementwise, derived in its docstring:
 two fp32 evaluations of the backward summing in different orders, 2x to
@@ -154,6 +156,8 @@ def _faulty_bwd(fault, q, k, v, out, lse, dout, causal):
                                      - lse[..., None]), 0.0)
     d = dout.sum(-1) if fault == "d_from_do" else (dout * out).sum(-1)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", dout, vf) - d[..., None])
+    if fault == "ds_hi_only":  # dQ and dK take dS rounded to bf16 once
+        ds = ds.to(torch.bfloat16).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
     dkh = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
     dvh = torch.einsum("bhqk,bhqd->bhkd", p, dout)
@@ -178,13 +182,74 @@ def test_check_catches_each_planted_fault(fault):
 def test_planted_backward_params():
     base = k7.backward_params(scale=0.125, causal=True)
     assert (base.scale, base.causal, base.causal_shift, base.first_head_only,
-            base.d_from_do) == (0.125, 1, 0, 0, 0)
-    for fault, field in zip(k7.BACKWARD_FAULTS, ("first_head_only", "causal_shift", "d_from_do")):
+            base.d_from_do, base.ds_hi_only) == (0.125, 1, 0, 0, 0, 0)
+    fields = ("first_head_only", "causal_shift", "d_from_do", "ds_hi_only")
+    assert len(k7.BACKWARD_FAULTS) == len(fields)
+    for fault, field in zip(k7.BACKWARD_FAULTS, fields):
         p = k7.planted_backward_params(fault)(scale=0.125, causal=True)
         assert getattr(p, field) == 1
-        assert sum((p.causal_shift, p.first_head_only, p.d_from_do)) == 1
+        assert sum(getattr(p, f) for f in fields) == 1
     with pytest.raises(ValueError):
         k7.planted_backward_params("nope")
+
+
+#: The split mirror's cases: b, h, hkv, lq, lk, dh, causal, and the factor
+#: q and k are scaled by (x30 puts some visible weights below 2^-110,
+#: where the split is no longer exact, and underflows most others to 0).
+SPLIT_CASES = [
+    (2, 8, 2, 96, 96, 64, True, 1.0),
+    (2, 8, 2, 96, 96, 64, True, 8.0),
+    (2, 8, 2, 96, 96, 64, True, 30.0),
+    (2, 4, 4, 40, 17, 16, True, 1.0),     # Lq > Lk: rows that see no key
+    (1, 6, 2, 20, 45, 32, False, 1.0),    # cross-attention shape, Lq < Lk
+    (1, 8, 1, 25, 60, 128, True, 4.0),    # rep 8, the offset mask, Dh 128
+]
+
+
+def _scaled_bwd_inputs(seed, b, h, hkv, lq, lk, dh, causal, mult):
+    """``random_bwd_inputs`` in bf16 with q and k scaled by ``mult`` (then
+    rounded to bf16), K7's output and logsumexp recomputed."""
+    q, k, v, out, lse, dout = k7.random_bwd_inputs(seed, b, h, hkv, lq, lk, dh, torch.bfloat16,
+                                                   causal=causal)
+    if mult != 1.0:
+        q, k = ((t.float() * mult).to(torch.bfloat16) for t in (q, k))
+        out = k7.flash_attention_ref(q, k, v, causal=causal)
+        lse = k7.lse_ref(q, k, causal=causal)
+    return q, k, v, out, lse, dout
+
+
+@pytest.mark.parametrize("b,h,hkv,lq,lk,dh,causal,mult", SPLIT_CASES)
+def test_split_mirror_within_the_bound(b, h, hkv, lq, lk, dh, causal, mult):
+    """The bf16 kernel's scheme in plain torch (dO, P and dS as exact
+    three-part bf16 splits, P dO's six cross terms) within the unchanged
+    ``rounding_bound_bwd`` and ``BWD_NORMWISE_LIMIT`` of the plain backward;
+    rows that see no key give exactly 0; and the ``ds_hi_only`` fault's
+    mirror fails the same check."""
+    args = _scaled_bwd_inputs(41, b, h, hkv, lq, lk, dh, causal, mult)
+    kw = {"causal": causal}
+    got = k7.flash_attention_bwd_split_ref(*args, **kw)
+    assert [tuple(g.shape) for g in got] == [(b, h, lq, dh), (b, hkv, lk, dh), (b, hkv, lk, dh)]
+    res = k7.check_bwd_against_plain(args, kw, grads_k=got)
+    assert res["max_ratio"] <= 1.0 and res["normwise"] <= k7.BWD_NORMWISE_LIMIT
+    if causal and lq > lk:
+        assert not got[0][:, :, :lq - lk].any()
+    if mult == 30.0:  # the split's inexact range is exercised
+        q, k, _, _, lse, _ = args
+        s = torch.einsum("bhqd,bhkd->bhqk", *k7._gqa(q, k, k)[:2]) / math.sqrt(dh)
+        p = torch.where(k7._valid(lq, lk, causal, "cpu"), torch.exp(s - lse[..., None]), 0.0)
+        assert int(((p > 0) & (p < 2.0**-110)).sum()) > 0
+    with pytest.raises(AssertionError, match="disagrees"):
+        k7.check_bwd_against_plain(
+            args, kw, grads_k=k7.flash_attention_bwd_split_ref(*args, **kw, ds_hi_only=True))
+
+
+def test_bwd_scratch_words():
+    """K7b's scratch: D for fp32; for bf16 the padded lse and D (rows
+    rounded up to the dK/dV kernel's 64 keys) and dO's three bf16 planes."""
+    assert k7._bwd_scratch_words(torch.float32, 2, 3, 100, 64) == 2 * 3 * 100
+    assert k7._bwd_scratch_words(torch.bfloat16, 2, 3, 100, 64) == (
+        2 * 2 * 3 * 128 + 3 * 2 * 3 * 100 * 64 // 2)
+    assert k7._bwd_scratch_words(torch.bfloat16, 1, 1, 64, 16) == 2 * 64 + 3 * 64 * 16 // 2
 
 
 def test_bwd_wrapper_cpu_and_device_rules():

@@ -921,12 +921,18 @@ def test_lm_checks_flag_a_wrong_output(monkeypatch, which, scale):
 # --------------------------------------------------------------------------
 # K7b (K7's gradient, for training)
 # --------------------------------------------------------------------------
+# fp32 takes the CUDA-core kernels (32-row tiles), bf16 the tensor-core ones
+# (dQ: 128 query rows a CTA over 64-key tiles; dK/dV: 64 keys a CTA over
+# 64-query tiles; lse and D padded to 64 rows).
 BWD_CASES = [  # b, h, hkv, lq, lk, causal, heads_last
     (2, 8, 2, 200, 200, True, True),     # rep 4, causal, ragged against the 32-row tiles
     (2, 6, 2, 100, 300, False, False),   # cross-attention, Lq < Lk
     (2, 4, 4, 300, 65, True, False),     # Lq > Lk: 235 rows see no key
     (1, 8, 1, 65, 190, True, True),      # rep 8, Lq < Lk causal (the offset mask)
     (2, 24, 8, 256, 256, True, True),    # llama3.2-3b's heads
+    (1, 24, 8, 1000, 1000, True, True),  # llama3.2-3b's heads, ragged against 64 and 128
+    (2, 6, 2, 129, 127, True, False),    # one row past a 128-row tile, keys one short of 128
+    (1, 6, 3, 65, 191, False, True),     # non-causal, both lengths one past a 64-row tile
 ]
 
 
@@ -945,6 +951,29 @@ def test_flash_bwd_kernel_within_rounding_bound(cuda_device, case, dtype, dh):
     if causal and lq > lk:
         dq, _, _ = tfa.flash_attention_bwd(*args, causal=causal)
         assert not dq[:, :, :lq - lk].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["padded_rows", "unaligned_base"])
+def test_flash_bwd_copies_a_view_tma_cannot_address(cuda_device, view):
+    """A bf16 K7b input whose row stride is not a multiple of 16 bytes, or
+    whose base is not 16-byte aligned, is copied by the wrapper (the
+    tensor-core path reads q, k and v with TMA) and the gradients still
+    agree with the plain version."""
+    q, k, v, out, lse, dout = tfa.random_bwd_inputs(35, 2, 6, 2, 129, 129, 64, torch.bfloat16,
+                                                    device=cuda_device)
+    if view == "padded_rows":
+        wide = torch.zeros(2, 2, 129, 68, dtype=torch.bfloat16, device=cuda_device)
+        wide[..., :64] = v
+        v = wide[..., :64]
+    else:
+        flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda_device)
+        flat[1:] = q.reshape(-1)
+        q = flat[1:].view(q.shape)
+    assert not all(tfa.tma_addressable(t) for t in (q, k, v))
+    before = tfa.flash_attention_bwd.launches
+    tfa.check_bwd_against_plain((q, k, v, out, lse, dout), {"causal": True})
+    assert tfa.flash_attention_bwd.launches == before + 1
 
 
 @pytest.mark.cuda
