@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 1,14   # build + the other model families served
     python3 chip_smoke.py --phases 1,15   # build + llama3.2-3b trained (K7, K7b)
     python3 chip_smoke.py --phases 1,15 --parent build/parent  # K7b beside an earlier tree's
+    python3 chip_smoke.py --phases 1,16   # build + remat at 4096-token rows, the dry run
     python3 chip_smoke.py --phases 1,9 --parent build/parent  # K7 beside an earlier tree's
     python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1, K3, K4, K5 beside it
     python3 chip_smoke.py --phases 1,8 --parent build/parent    # K3, K4 and K5 beside it
@@ -219,17 +220,20 @@ Phases (each prints its own lines and raises on failure):
      shuffled a call -> (a)'s bit-equality;
  15. LM training: ``TrainRun("llama3.2-3b", smoke=False, batch 2, seq 1024,
      6 AdamW steps)`` at full width and depth (3.21e9 fp32 master
-     parameters from seed 0, the data pipeline's tokens), each gate
-     raising on failure: (a) every K7b call of the main path's first step
-     (28, recorded to the host) against the plain backward on its saved
-     inputs (``flash_attention.check_bwd_against_plain``: each of dq, dk,
+     parameters from seed 0, the data pipeline's tokens, the config's
+     ``remat="full"``), each gate raising on failure: (a) every K7b call
+     of the main path's first step (28, recorded to the host) against the
+     plain backward on its saved (recomputed) inputs
+     (``flash_attention.check_bwd_against_plain``: each of dq, dk,
      dv within ``rounding_bound_bwd`` and ``BWD_NORMWISE_LIMIT``); (b) at 2
      layers (full width) one step's gradients through K7 and K7b against
      the same step through their plain versions on the card, every leaf
      within ``P15_GRAD_TOL_ULPS`` normwise, every layer's wq / wk / wv
-     gradient nonzero, two kernel-path steps bit-equal, every K7b call
-     held as in (a); (c) the full-depth run: launch counts zeroed just
-     before and read just after (K7 and K7b 28 a step), losses and grad
+     gradient nonzero, two kernel-path steps bit-equal, a step with
+     ``remat="none"`` bit-equal to one with ``"full"`` (the peak memory of
+     each printed), every K7b call held as in (a); (c) the full-depth run:
+     launch counts zeroed just before and read just after (K7 56 a step:
+     28 in the forward, 28 in the recompute; K7b 28), losses and grad
      norms finite, the first loss within ``P15_FIRST_LOSS_SLACK`` of
      ln(vocab) plus the z-loss; (d) ``tests/test_integration.py``'s resume
      test on the card at SMOKE size (mamba2-130m, as there, and
@@ -243,7 +247,30 @@ Phases (each prints its own lines and raises on failure):
      given, and the HGMMA count of each bf16 K7b kernel's SASS by Dh;
      (e) planted faults: K7b's ``gqa_first_head``, ``causal_plus_one``,
      ``d_from_do`` and ``ds_hi_only`` -> (a) at the depth cut, K7
-     launched without its autograd op (no gradient to wq, wk, wv) -> (b).
+     launched without its autograd op (no gradient to wq, wk, wv) -> (b);
+ 16. remat and the dry run on one card: (a) ``TrainRun("llama3.2-3b")`` at
+     full width and depth on ``train_4k``'s 4096-token rows, B 2 (cut to
+     1 on an out-of-memory, and said so), 4 AdamW steps with the config's
+     remat: losses finite, K7 2 x 28 a step and K7b 28 (counts zeroed just
+     before and read just after); ms a step by part, tokens/s, peak
+     memory; last, one step of B 1 x 4096 without remat, as a reading
+     (whether it fits); (b) ``python -m repro_torch.launch.dryrun`` on
+     meta (no card) over the registry's 32 cells at full size, one
+     process a cell, 6 at once, and ``--all --smoke``: every record ok;
+     (c) the dry run's cells at ad hoc ``ShapeSpec``s held against the
+     card: the FLOPs counted (``kernels.cost.CostCounter``) over one real
+     train step at B 2 x 1024 and over phase 9's prefill (B 4 x 1024) equal
+     the dry run's on meta exactly, their K7 / K7b calls and FLOPs equal
+     this script's pair count (``k7_work``) x 4 Dh / 10 Dh, the decode
+     cells' cache bytes at phase 9's B 4 and max length equal the card
+     prefill's ``cache_bytes`` in both KV modes, the train cell's
+     argument bytes equal the parameters', moments', step's and batch's on
+     the card, and the measured steps (this phase's, phase 15's) are no
+     less than the dry run's roofline bound; readings: step over bound,
+     ``temp_size_in_bytes`` beside the peak less the argument bytes;
+     (d) planted faults: a remat that keeps the config's "full" but skips
+     the recompute -> (a)'s launch gate, K7's count without the causal
+     half and K7b's count left out -> (c)'s FLOP gate.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -257,6 +284,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -4035,6 +4063,14 @@ P15_GRAD_TOL_ULPS = 16
 P15_FIRST_LOSS_SLACK = 0.5
 
 
+def train_launches(cfg, steps: int) -> dict:
+    """K7 and K7b launches of ``steps`` training steps of a dense config:
+    K7 once a layer in the forward and, under ``remat="full"``, once more
+    in the backward's recompute of each layer; K7b once a layer."""
+    return {"k7": cfg.n_layers * (2 if cfg.remat == "full" else 1) * steps,
+            "k7b": cfg.n_layers * steps}
+
+
 def p15_train_run(**kw):
     from repro_torch.launch.train import TrainRun
 
@@ -4108,32 +4144,42 @@ def plain_train_versions():
     return _planted(k7, flash_attention=k7.flash_attention_plain)
 
 
-def p15_check_records(records: list) -> dict:
+def p15_check_records(records: list, device: str) -> dict:
     """(a): each recorded K7b call held against the plain backward on its
-    own saved inputs, on the card."""
+    own saved inputs, on ``device``."""
     from repro_torch.kernels import flash_attention as k7
 
     worst = {"n": 0, "max_ratio": 0.0, "normwise": 0.0, "max_abs_err": 0.0}
     for a, kw, out in records:
-        a = tuple(t.to(P15_DEVICE) for t in a)
-        c = k7.check_bwd_against_plain(a, kw, grads_k=tuple(t.to(P15_DEVICE) for t in out))
+        a = tuple(t.to(device) for t in a)
+        c = k7.check_bwd_against_plain(a, kw, grads_k=tuple(t.to(device) for t in out))
         worst["n"] += 1
         for key in ("max_ratio", "normwise", "max_abs_err"):
             worst[key] = max(worst[key], c[key])
     return worst
 
 
-def p15_grads(run, params, batch, cfg, mod, route=contextlib.nullcontext) -> tuple:
+def p15_grads(run, params, batch, cfg, mod, route=contextlib.nullcontext,
+              times: dict | None = None) -> tuple:
     """(loss, {path: fp32 gradient}) of one ``loss_fn`` forward and
-    backward of ``run``'s model, through ``route``'s attention."""
-    from repro_torch.launch.train import deterministic_algorithms
+    backward of ``run``'s model, through ``route``'s attention; with
+    ``times``, the forward's and the backward's ms (CUDA events) go there."""
+    from repro_torch.launch.train import _seconds, _stamp, deterministic_algorithms
     from repro_torch.optim import adamw
 
     for p in adamw.tree_leaves(params):
         p.grad = None
+    dev = torch.device(P15_DEVICE)
     with route(), deterministic_algorithms():
+        t0 = _stamp(dev)
         loss, _ = mod.loss_fn(params, run._with_stubs(batch, cfg), cfg)
+        t1 = _stamp(dev)
         loss.backward()
+        t2 = _stamp(dev)
+    if times is not None:
+        if dev.type == "cuda":
+            t2.synchronize()
+        times.update(forward=1e3 * _seconds(t0, t1), backward=1e3 * _seconds(t1, t2))
     grads = {}
 
     def walk(tree, prefix=""):
@@ -4150,24 +4196,37 @@ def p15_grads(run, params, batch, cfg, mod, route=contextlib.nullcontext) -> tup
 
 def p15_step_gate(gpu: str, plant=None) -> dict:
     """(b) at the depth cut: one step's gradients from the kernel path
-    twice (bit-equal) and through the plain versions on the card, every
-    parameter's within ``P15_GRAD_TOL_ULPS`` normwise, every layer's wq /
-    wk / wv gradient nonzero; with every K7b call of the kernel path held
-    to its plain version (a). ``plant`` (a context) wraps the kernel path
-    only. Raises AssertionError."""
+    (``remat="full"``) twice (bit-equal), once with ``remat="none"``
+    (bit-equal; the peak memory of each read) and through the plain
+    versions on the card, every parameter's within ``P15_GRAD_TOL_ULPS``
+    normwise, every layer's wq / wk / wv gradient nonzero; with every K7b
+    call of the kernel path held to its plain version (a). ``plant`` (a
+    context) wraps the kernel path only. Raises AssertionError."""
     from repro_torch.data.pipeline import make_batch
 
     run = p15_train_run(n_layers=P15_CUT_LAYERS, steps=1)
     cfg, mod, dev, params, _, dcfg, _ = run.build()
+    full, none = (dataclasses.replace(cfg, remat=r) for r in ("full", "none"))
     batch = make_batch(dcfg, 0, dev)
     checked: dict = {}
+    peaks, times = {}, {"full": {}, "none": {}}
     with (plant or contextlib.nullcontext)():
         with k7b_each_call(k7b_checker(checked)):
-            loss_k, g_k = p15_grads(run, params, batch, cfg, mod)
-        loss_k2, g_k2 = p15_grads(run, params, batch, cfg, mod)
-    loss_p, g_p = p15_grads(run, params, batch, cfg, mod, plain_train_versions)
-    res = {"loss_k": loss_k, "loss_p": loss_p, "launches_checked": checked,
-           "bit_equal": all(torch.equal(g_k[k], g_k2[k]) for k in g_k) and loss_k == loss_k2}
+            loss_k, g_k = p15_grads(run, params, batch, full, mod)
+        for key, c in (("full", full), ("none", none)):
+            torch.cuda.reset_peak_memory_stats()
+            loss, grads = p15_grads(run, params, batch, c, mod, times=times[key])
+            peaks[key] = torch.cuda.max_memory_allocated()
+            if key == "full":
+                loss_k2, g_k2 = loss, grads
+            else:
+                loss_n, g_n = loss, grads
+    loss_p, g_p = p15_grads(run, params, batch, full, mod, plain_train_versions)
+    res = {"loss_k": loss_k, "loss_p": loss_p, "launches_checked": checked, "peaks": peaks,
+           "times": times,
+           "bit_equal": all(torch.equal(g_k[k], g_k2[k]) for k in g_k) and loss_k == loss_k2,
+           "remat_bit_equal": (all(torch.equal(g_k[k], g_n[k]) for k in g_k)
+                               and loss_k == loss_n)}
     worst, hole = 0.0, []
     for key, gp in g_p.items():
         rel = float(torch.linalg.vector_norm(g_k[key] - gp)
@@ -4178,7 +4237,7 @@ def p15_step_gate(gpu: str, plant=None) -> dict:
         g = g_k[f"layers.attn.{name}"]
         hole += [f"layer {i} {name}" for i in range(g.shape[0]) if not bool(g[i].any())]
     res["normwise"] = worst
-    del params, g_k, g_k2, g_p
+    del params, g_k, g_k2, g_n, g_p
     torch.cuda.empty_cache()
     limit = P15_GRAD_TOL_ULPS * 2.0**-8
     if hole:
@@ -4188,6 +4247,8 @@ def p15_step_gate(gpu: str, plant=None) -> dict:
                              f"normwise {worst:.4g} > {limit:g}")
     if not res["bit_equal"]:
         raise AssertionError("(b) two kernel-path steps' gradients are not bit-equal")
+    if not res["remat_bit_equal"]:
+        raise AssertionError("(b) the step with remat='full' and with 'none' are not bit-equal")
     return res
 
 
@@ -4362,7 +4423,11 @@ def phase15_training(results: dict, parent: Path | None = None) -> None:
         f"{P15_RUN['batch']} x {P15_RUN['seq']}: loss kernel path {r['loss_k']:.6f}, plain "
         f"path {r['loss_p']:.6f}; worst gradient normwise {r['normwise']:.4g} "
         f"({r.get('worst_leaf')}; limit {P15_GRAD_TOL_ULPS * 2.0**-8:g}); every layer's wq, wk, "
-        f"wv gradient nonzero; two kernel-path steps bit-equal; (a) on its "
+        f"wv gradient nonzero; two kernel-path steps bit-equal; remat 'full' and 'none' "
+        f"bit-equal (loss and every gradient), peak max_memory_allocated {r['peaks']['full']} "
+        f"and {r['peaks']['none']} bytes, forward {r['times']['full']['forward']:.3f} and "
+        f"{r['times']['none']['forward']:.3f} ms, backward {r['times']['full']['backward']:.3f} "
+        f"and {r['times']['none']['backward']:.3f} ms (one step each, CUDA events); (a) on its "
         f"{r['launches_checked']['n']} K7b calls: max err/bound "
         f"{r['launches_checked']['max_ratio']:.3e}, normwise "
         f"{r['launches_checked']['normwise']:.3e}; {time.perf_counter() - t0:.1f} s ({gpu})")
@@ -4378,7 +4443,7 @@ def phase15_training(results: dict, parent: Path | None = None) -> None:
             if batch == 1:
                 raise
     cfg = main["cfg"]
-    want = {"k7": cfg.n_layers * P15_RUN["steps"], "k7b": cfg.n_layers * P15_RUN["steps"]}
+    want = train_launches(cfg, P15_RUN["steps"])
     losses, norms = main["losses"], main["grad_norms"]
     expect = math.log(cfg.vocab) + 1e-4 * math.log(cfg.vocab) ** 2
     parts = main["parts"][2:] or main["parts"]  # step 0 warms up, step 1 is profiled
@@ -4388,7 +4453,8 @@ def phase15_training(results: dict, parent: Path | None = None) -> None:
     tokens = main["batch"] * P15_RUN["seq"]
     cut = "" if main["batch"] == P15_RUN["batch"] else f" (cut from B {P15_RUN['batch']})"
     log(f"[15] (c) {P15_ARCH} at full width and depth ({main['params']} parameters, fp32 "
-        f"masters, seed 0): B {main['batch']}{cut} x {P15_RUN['seq']}, {P15_RUN['steps']} AdamW "
+        f"masters, seed 0, remat {cfg.remat!r}): B {main['batch']}{cut} x {P15_RUN['seq']}, "
+        f"{P15_RUN['steps']} AdamW "
         f"steps through TrainRun.run in {main['wall']:.1f} s; launches K7 {main['launches']['k7']}"
         f", K7b {main['launches']['k7b']} (expected {want}); losses "
         f"{[round(x, 6) for x in losses]}; grad norms {[round(x, 5) for x in norms]}; first "
@@ -4399,7 +4465,12 @@ def phase15_training(results: dict, parent: Path | None = None) -> None:
         f"forward {1e3 * med['forward']:.3f} ms, backward {1e3 * med['backward']:.3f} ms, "
         f"optimizer {1e3 * med['optimizer']:.3f} ms, step {step_ms:.3f} ms, "
         f"{tokens / step_ms * 1e3:.1f} tokens/s; the first step (warm-up, (a)'s host copies) "
-        f"{1e3 * sum(main['parts'][0].values()):.3f} ms ({gpu})")
+        f"{1e3 * sum(main['parts'][0].values()):.3f} ms; the readings without remat that "
+        f"PERF.md quotes (an earlier tree, another call): 392.3-417.2 ms a step, peak 69.0 "
+        f"GB; the recompute's cost in this call is (b)'s backward with and without remat "
+        f"({gpu})")
+    results["p15"] = {"step_ms": step_ms, "peak": main["peak"], "batch": main["batch"],
+                      "seq": P15_RUN["seq"], "remat": cfg.remat}
     if main["launches"] != want:
         raise AssertionError(f"(c) launches {main['launches']}, expected {want}")
     if not (all(math.isfinite(x) for x in losses + norms)):
@@ -4409,7 +4480,7 @@ def phase15_training(results: dict, parent: Path | None = None) -> None:
                              f"{P15_FIRST_LOSS_SLACK} of {expect:.4f}")
 
     t0 = time.perf_counter()
-    a = p15_check_records(main["records"])
+    a = p15_check_records(main["records"], P15_DEVICE)
     log(f"[15] (a) every K7b call of the main path's first step ({a['n']} calls, layers "
         f"{cfg.n_layers - 1}..0) against the plain backward on its saved inputs: max err/bound "
         f"{a['max_ratio']:.3e}, normwise {a['normwise']:.3e} (limit {k7.BWD_NORMWISE_LIMIT:g}),"
@@ -4444,6 +4515,488 @@ def phase15_training(results: dict, parent: Path | None = None) -> None:
     log(f"[15] phase 15 in {time.perf_counter() - t_phase:.1f} s ({gpu})")
     if missed:
         raise AssertionError(f"phase 15: planted faults not caught: {missed}")
+
+
+# --------------------------------------------------------------------------
+# phase 16: remat and the dry run on one card
+# --------------------------------------------------------------------------
+P16_ARCH = "llama3.2-3b"
+#: (a): train_4k's 4096-token rows, B 2 (cut to 1 on an out-of-memory)
+P16_RUN = dict(batch=2, seq=4096, steps=4, seed=0, lr=1e-3, log_every=100)
+#: (c): the train step counted on the card and on meta (phase 15's B x L),
+#: and the prefill (phase 9's B 4 x 1024)
+P16_TRAIN_COUNT = (2, 1024)
+P16_PREFILL = (4, 1024)
+#: (c): phase 9's decode caches (B 4, prompt 1024 + 160 tokens) and the
+#: cache_bytes phase 9 read for them (PERF.md)
+P16_DECODE = {"anchored": (4, 1280, 429_392_320), "dense": (4, 1184, 543_162_816)}
+#: (d): the planted remat's run: 2 layers at full width, one step
+P16_PLANT_RUN = dict(n_layers=2, batch=1, seq=1024, steps=1)
+#: Module globals read at call time (a CPU rehearsal sets "cpu" and SMOKE).
+P16_DEVICE = "cuda"
+P16_SMOKE = False
+
+
+def p16_launch_gate(label: str, launches: dict, cfg, steps: int) -> None:
+    """(a)'s gate: K7 2 x n_layers a step under remat (the forward and the
+    backward's recompute), K7b n_layers a step."""
+    want = train_launches(cfg, steps)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want} (remat "
+                             f"{cfg.remat!r})")
+
+
+def k7_call_recorder(record: dict, index: int):
+    """A plant over K7's ``_forward`` (every K7 call, with or without its
+    logsumexp) that passes each call on and keeps host copies of call
+    ``index``'s inputs (as the launch read them) and output. In a remat
+    step, call n_layers is the backward's first recompute (the last
+    layer's)."""
+    from repro_torch.kernels import flash_attention as k7
+
+    orig, seen = k7._forward, [0]
+
+    def call(q, k, v, causal, scale, with_lse):
+        res = orig(q, k, v, causal, scale, with_lse=with_lse)
+        if seen[0] == index:
+            out, _, read = res
+            record.update(args=tuple(t.to("cpu", copy=True) for t in read),
+                          kw={"causal": causal, "scale": scale},
+                          out=out.to("cpu", copy=True), with_lse=with_lse)
+        seen[0] += 1
+        return res
+
+    return _planted(k7, _forward=call)
+
+
+def p16_train(gpu: str, batch: int) -> dict:
+    """(a) ``TrainRun`` at 4096-token rows with the config's remat, launch
+    counts zeroed just before and read just after; the first step's K7b
+    calls and its first recomputed K7 call copied to the host for
+    :func:`p16_long_row_checks` (held to their plain versions after the
+    run: the plain versions' (L x L) fp32 score matrices, ~3.2 GB each at
+    B 2, do not fit beside the step's own peak). Returns the run's
+    readings, its final parameters and optimizer state."""
+    from repro_torch.launch.train import TrainRun
+
+    run = TrainRun(arch=P16_ARCH, smoke=P16_SMOKE, device=P16_DEVICE,
+                   **{**P16_RUN, "batch": batch})
+    cfg = run.config()
+    K7, K7b = wrapper("k7"), wrapper("k7b")
+    k7b_records: list = []
+    k7_record: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    K7.launches = 0
+    K7b.launches = 0
+    t0 = time.perf_counter()
+    with k7b_each_call(k7b_recorder(k7b_records, cfg.n_layers)), \
+            k7_call_recorder(k7_record, cfg.n_layers):
+        out = run.run()
+    torch.cuda.synchronize()
+    return {"cfg": cfg, "batch": batch, "wall": time.perf_counter() - t0,
+            "launches": {"k7": K7.launches, "k7b": K7b.launches},
+            "peak": torch.cuda.max_memory_allocated(), "losses": out["losses"],
+            "parts": out["parts"], "params": out["params"], "opt_state": out["opt_state"],
+            "k7b_records": k7b_records, "k7_record": k7_record}
+
+
+def p16_long_row_checks(a: dict, gpu: str) -> list:
+    """(a)'s kernel gates at the main path's own shapes and inputs: the
+    first step's recomputed K7 call against the plain forward and every
+    K7b call of that step against the plain backward, on the card; then
+    K7 and K7b each with a fault planted (``causal_plus_one``: each query
+    sees one future key) on the same inputs, which these checks must fail.
+    Raises AssertionError if a clean check fails; returns the plants not
+    caught."""
+    from repro_torch.kernels import flash_attention as k7
+
+    cfg, rec = a["cfg"], a["k7_record"]
+    if not rec or not rec["with_lse"]:
+        raise AssertionError(f"(a) K7 call {cfg.n_layers} of the first step was not the "
+                             f"recompute's (with its logsumexp): {rec.get('with_lse')}")
+    args = tuple(t.to(P16_DEVICE) for t in rec["args"])
+    t0 = time.perf_counter()
+    c7 = k7.check_against_plain(args, rec["kw"], out_k=rec["out"].to(P16_DEVICE))
+    cb = p15_check_records(a["k7b_records"], P16_DEVICE)
+    log(f"[16] (a) the first step's recomputed K7 call {tuple(args[0].shape)} "
+        f"{args[0].dtype} (the last layer's) against the plain forward: max|err| "
+        f"{c7['max_abs_err']:.3e}, max err/bound {c7['max_ratio']:.3e}, normwise "
+        f"{c7['normwise']:.3e} (limit {k7.NORMWISE_LIMIT:g}); every K7b call of that step "
+        f"({cb['n']} calls) against the plain backward on its saved inputs: max err/bound "
+        f"{cb['max_ratio']:.3e}, normwise {cb['normwise']:.3e} (limit "
+        f"{k7.BWD_NORMWISE_LIMIT:g}), max|err| {cb['max_abs_err']:.3e}; "
+        f"{time.perf_counter() - t0:.1f} s ({gpu})")
+    if cb["n"] != cfg.n_layers:
+        raise AssertionError(f"(a) {cb['n']} K7b calls recorded, expected {cfg.n_layers}")
+    b_args, b_kw, _ = a["k7b_records"][0]
+    b_args = tuple(t.to(P16_DEVICE) for t in b_args)
+    missed = []
+    for name, plant, check in (
+            ("K7 causal_plus_one", lambda: _planted(
+                k7, kernel_params=k7.planted_params("causal_plus_one")),
+             lambda: k7.check_against_plain(args, rec["kw"])),
+            ("K7b causal_plus_one", lambda: _planted(
+                k7, backward_params=k7.planted_backward_params("causal_plus_one")),
+             lambda: k7.check_bwd_against_plain(b_args, b_kw))):
+        with plant():
+            try:
+                check()
+                missed.append(f"(a) {name}")
+                log(f"[16] (a) {name} at {tuple(args[0].shape)}: the check PASSED: not "
+                    f"caught ({gpu})")
+            except AssertionError as e:
+                log(f"[16] (a) {name} at {tuple(args[0].shape)}: the check failed, as it "
+                    f"must: {str(e)[:200]} ({gpu})")
+    return missed
+
+
+def p16_dryrun_start(out_dir: Path) -> subprocess.Popen:
+    """(b): ``python -m repro_torch.launch.dryrun --all --smoke`` on meta
+    (no card: ``CUDA_VISIBLE_DEVICES`` empty), the registry's 32 cells at
+    SMOKE size in one process beside the card work. The CPU tests run
+    every cell at full size on meta (``tests/test_torch_dryrun_full_*.py``);
+    here (c) runs the full-size cells it holds to the card."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    with open(out_dir / "log.txt", "w") as f:
+        return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                                 "--smoke", "--out", str(out_dir)], cwd=ROOT, env=env,
+                                stdout=f, stderr=subprocess.STDOUT)
+
+
+def p16_dryrun_gate(proc: subprocess.Popen, out_dir: Path, gpu: str) -> None:
+    """(b)'s gate: the process exits 0 and every cell's record is ``ok``."""
+    from repro_torch.models import registry
+
+    rc = proc.wait(timeout=600)
+    failed = []
+    for arch, shape in registry.runnable_cells(smoke=True):
+        f = out_dir / f"{arch}__{shape}__1.json"
+        rec = json.loads(f.read_text()) if f.exists() else {"ok": False}
+        if not rec["ok"]:
+            failed.append((arch, shape, rec.get("error")))
+    if rc != 0 or failed:
+        raise AssertionError(f"(b) the dry run's CLI: exit {rc}, cells not ok {failed[:4]}; "
+                             f"{(out_dir / 'log.txt').read_text()[-400:]}")
+    log(f"[16] (b) python -m repro_torch.launch.dryrun --all --smoke on meta "
+        f"(CUDA_VISIBLE_DEVICES empty): exit 0, {len(registry.runnable_cells(smoke=True))} "
+        f"cells ok ({gpu})")
+
+
+def p16_counted(fn) -> "object":
+    """The dry run's counter over ``fn()`` on the card."""
+    from repro_torch.kernels.cost import CostCounter
+
+    with CostCounter() as c:
+        fn()
+    torch.cuda.synchronize()
+    return c
+
+
+def p16_expected_attention(cfg, b: int, l: int, steps_kind: str) -> dict:
+    """The K7 and K7b FLOPs a step of ``cfg`` at B x L must count, from this
+    script's own pair count (``k7_work``): K7 4 Dh a visible pair, once a
+    layer (twice under remat in a train step), K7b 10 Dh once a layer."""
+    h, dh = cfg.n_heads, cfg.head_dim
+    q = torch.empty((b, h, l, dh), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((b, cfg.n_kv, l, dh), dtype=torch.bfloat16, device="meta")
+    pairs = k7_work((q, kv, kv), {"causal": True})[0]
+    if steps_kind == "prefill":
+        return {"flash_attention": {"calls": cfg.n_layers,
+                                    "flops": cfg.n_layers * 4 * dh * b * h * pairs}}
+    calls = train_launches(cfg, 1)
+    return {"flash_attention": {"calls": calls["k7"],
+                                "flops": calls["k7"] * 4 * dh * b * h * pairs},
+            "flash_attention_bwd": {"calls": calls["k7b"],
+                                    "flops": calls["k7b"] * 10 * dh * b * h * pairs}}
+
+
+def p16_flop_gate(label: str, card, rec: dict, want: dict) -> None:
+    """(c)'s FLOP gate: the counter's FLOPs over the card's step equal the
+    dry run's record on meta exactly, and its K7 / K7b calls and FLOPs equal
+    :func:`p16_expected_attention`'s."""
+    got = {k: {"calls": v["calls"], "flops": v["flops"]} for k, v in card.kernels.items()}
+    if card.flops != rec["flops_per_device"]:
+        raise AssertionError(f"(c) {label}: {card.flops} FLOPs counted on the card, "
+                             f"{rec['flops_per_device']} by the dry run on meta")
+    if got != want:
+        raise AssertionError(f"(c) {label}: kernel counts {got}, expected {want}")
+
+
+def p16_dryrun_cell(kind: str, b: int, l: int) -> dict:
+    """The dry run's record of ``P16_ARCH``'s cell at an ad hoc
+    ``ShapeSpec`` (B x L), run on meta."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    rec = dryrun.run_cell(P16_ARCH, ShapeSpec(f"{kind}_{b}x{l}", l, b, kind), smoke=P16_SMOKE)
+    if not rec["ok"]:
+        raise AssertionError(f"(c) the dry run's {kind} B {b} x {l} cell failed: {rec['error']}")
+    return rec
+
+
+def p16_card_counts(a: dict, gpu: str) -> None:
+    """(c) on (a)'s trained parameters: the train step at B 2 x 1024 and
+    the prefill at B 4 x 1024 counted on the card, against the dry run's
+    cells on meta; the decode cells' cache bytes against the real
+    prefill's ``cache_bytes`` in both KV modes; the train cell's argument
+    bytes against the card's parameters, moments, step and batch."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.serve import cache_bytes
+    from repro_torch.launch.train import TrainRun, train_step
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+
+    cfg, params, opt = a["cfg"], a["params"], a["opt_state"]
+    mod = registry.get_module(cfg)
+    dev = torch.device(P16_DEVICE)
+    b, l = P16_TRAIN_COUNT
+    batch = make_batch(DataConfig(vocab=cfg.vocab, seq_len=l, global_batch=b), 0, dev)
+    rec = p16_dryrun_cell("train", b, l)
+    mem = rec["memory"]
+    card = p16_counted(lambda: train_step(mod, cfg, adamw.OptConfig(), params, opt,
+                                          TrainRun._with_stubs(batch, cfg)))
+    p16_flop_gate(f"train B {b} x {l}", card, rec, p16_expected_attention(cfg, b, l, "train"))
+    args = sum(t.numel() * t.element_size() for t in adamw.tree_leaves(params)
+               + adamw.tree_leaves(opt.mu) + adamw.tree_leaves(opt.nu)
+               + [opt.step, batch["tokens"], batch["labels"]])
+    if args != mem["argument_size_in_bytes"]:
+        raise AssertionError(f"(c) argument bytes: the card's {args}, the dry run's "
+                             f"{mem['argument_size_in_bytes']}")
+    log(f"[16] (c) train step B {b} x {l} ({cfg.remat!r} remat): {card.flops} FLOPs counted on "
+        f"the card = the dry run's on meta (K7 {card.kernels['flash_attention']['calls']} calls "
+        f"{card.kernels['flash_attention']['flops']} FLOPs, K7b "
+        f"{card.kernels['flash_attention_bwd']['calls']} calls "
+        f"{card.kernels['flash_attention_bwd']['flops']} FLOPs, as k7_work's pairs give); bytes "
+        f"{card.bytes} on the card, {rec['bytes_per_device']} on meta; argument bytes {args} = "
+        f"the dry run's; dry-run bound {1e3 * max(rec['t_compute'], rec['t_memory']):.3f} ms "
+        f"({rec['bottleneck']}) ({gpu})")
+
+    b, l = P16_PREFILL
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (b, l)),
+                             dtype=torch.int32, device=dev)
+    rec = p16_dryrun_cell("prefill", b, l)
+    with torch.no_grad():
+        card = p16_counted(lambda: mod.prefill(params, prompt, cfg, l))
+    p16_flop_gate(f"prefill B {b} x {l}", card, rec, p16_expected_attention(cfg, b, l,
+                                                                           "prefill"))
+    log(f"[16] (c) prefill B {b} x {l}: {card.flops} FLOPs counted on the card = the dry run's "
+        f"on meta (K7 {card.kernels['flash_attention']['calls']} calls); dry-run bound "
+        f"{1e3 * max(rec['t_compute'], rec['t_memory']):.3f} ms ({gpu})")
+
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    for mode, (b, max_len, phase9) in P16_DECODE.items():
+        cfg_m = dataclasses.replace(cfg, kv_mode=mode)
+        spec = registry.input_specs(cfg_m, ShapeSpec("decode", max_len, b, "decode"))["cache"]
+        want = dryrun.tree_bytes(spec)
+        with torch.no_grad():
+            _, cache = mod.prefill(params, prompt, cfg_m, max_len)
+        got = cache_bytes(cache)
+        del cache
+        log(f"[16] (c) decode cell, kv {mode}, B {b}, max_len {max_len}: cache bytes {want} "
+            f"(dry run) = {got} (ServeRun's cache_bytes of the card's prefill cache; phase 9 "
+            f"read {phase9}, from the shapes {expected_cache_bytes(cfg, b, max_len, mode)}) "
+            f"({gpu})")
+        if want != got:
+            raise AssertionError(f"(c) kv {mode}: the dry run's cache bytes {want} != {got}")
+
+
+def p16_count_plants(a: dict, gpu: str) -> list:
+    """(d): K7's count without the causal half, and K7b's count left out,
+    must each fail (c)'s FLOP gate (the train step at B 2 x 1024)."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.launch.train import TrainRun, train_step
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+
+    cfg, params, opt = a["cfg"], a["params"], a["opt_state"]
+    mod = registry.get_module(cfg)
+    b, l = P16_TRAIN_COUNT
+    batch = TrainRun._with_stubs(make_batch(DataConfig(vocab=cfg.vocab, seq_len=l,
+                                                       global_batch=b), 0, P16_DEVICE), cfg)
+    k7_cost, k7b_cost = k7.k7_cost, k7.k7b_cost
+    missed = []
+    for name, plant in (
+            ("K7's count without the causal half", lambda: _planted(
+                k7, k7_cost=lambda q, k, v, causal, with_lse: k7_cost(q, k, v, False, with_lse))),
+            ("K7b's count left out", lambda: _planted(
+                k7, k7b_cost=lambda q, k, v, causal: (0, 0, False)))):
+        with plant():
+            try:
+                rec = p16_dryrun_cell("train", b, l)
+                card = p16_counted(lambda: train_step(mod, cfg, adamw.OptConfig(), params, opt,
+                                                      batch))
+                p16_flop_gate("planted", card, rec, p16_expected_attention(cfg, b, l, "train"))
+                missed.append(name)
+                log(f"[16] (d) {name}: (c) PASSED: not caught ({gpu})")
+            except AssertionError as e:
+                log(f"[16] (d) {name}: (c) failed, as it must: {str(e)[:240]} ({gpu})")
+    return missed
+
+
+def p16_remat_plant(gpu: str) -> list:
+    """(d): a remat that keeps the config's "full" but runs each layer
+    body plainly (no recompute) must fail (a)'s launch gate."""
+    from repro_torch.launch.train import TrainRun
+    from repro_torch.models import transformer
+
+    run = TrainRun(arch=P16_ARCH, smoke=P16_SMOKE, device=P16_DEVICE, lr=1e-3, log_every=100,
+                   **P16_PLANT_RUN)
+    cfg = run.config()
+    K7, K7b = wrapper("k7"), wrapper("k7b")
+    with _planted(transformer, run_body=lambda remat, body, *args, **_: body(*args)):
+        K7.launches = 0
+        K7b.launches = 0
+        run.run()
+        launches = {"k7": K7.launches, "k7b": K7b.launches}
+    torch.cuda.empty_cache()
+    try:
+        p16_launch_gate("planted", launches, cfg, P16_PLANT_RUN["steps"])
+        log(f"[16] (d) remat without its recompute: (a)'s launch gate PASSED: not caught "
+            f"({gpu})")
+        return ["remat without its recompute"]
+    except AssertionError as e:
+        log(f"[16] (d) remat without its recompute: (a)'s launch gate failed, as it must: "
+            f"{str(e)[:240]} ({gpu})")
+        return []
+
+
+def p16_no_remat_reading(gpu: str) -> None:
+    """(a), last: one step of B 1 x 4096 with ``remat="none"`` (a reading:
+    whether it fits the card, and its peak)."""
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.train import TrainRun, train_step
+    from repro_torch.optim import adamw
+
+    run = TrainRun(arch=P16_ARCH, smoke=P16_SMOKE, device=P16_DEVICE, steps=1, batch=1,
+                   seq=P16_RUN["seq"], seed=0)
+    cfg, mod, dev, params, opt, dcfg, _ = run.build()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        train_step(mod, dataclasses.replace(cfg, remat="none"),
+                   adamw.OptConfig(lr=1e-3, warmup_steps=20, total_steps=1), params, opt,
+                   run._with_stubs(make_batch(dcfg, 0, dev), cfg))
+        torch.cuda.synchronize()
+        log(f"[16] (a) reading: one step of B 1 x {P16_RUN['seq']} without remat fits: peak "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes ({gpu})")
+    except torch.cuda.OutOfMemoryError as e:
+        log(f"[16] (a) reading: one step of B 1 x {P16_RUN['seq']} without remat does not fit "
+            f"the card: out of memory ({str(e)[:200]}); peak max_memory_allocated before it "
+            f"{torch.cuda.max_memory_allocated()} bytes ({gpu})")
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def phase16_remat_dryrun(results: dict) -> None:
+    """remat and the dry run on one card: (a) llama3.2-3b trained at 4096-token
+    rows with remat, its K7 and K7b calls held to their plain versions (and a
+    no-remat reading), (b) the dry run's CLI over the 32 cells on meta, (c)
+    the dry run held against the card's own counts, cache bytes and argument
+    bytes, and the roofline bound against the measured steps, (d) planted
+    faults."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    gpu = gpu_line()
+    spent = {}
+    a = None
+    for batch in (P16_RUN["batch"], 1):
+        try:
+            a = p16_train(gpu, batch)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[16] (a) B {batch}: out of memory ({str(e)[:160]}); cut to B 1 ({gpu})")
+            torch.cuda.empty_cache()
+            if batch == 1:
+                raise
+    spent["(a)"] = time.perf_counter() - t_phase
+    out_dir = Path(tempfile.mkdtemp(prefix="p16_dryrun_"))
+    proc = p16_dryrun_start(out_dir)
+    try:
+        missed = p16_card_phases(a, results, gpu, spent)
+        t0 = time.perf_counter()
+        p16_dryrun_gate(proc, out_dir, gpu)
+        spent["(b) wait"] = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[16] phase 16 in {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()) + f" ({gpu})")
+    if missed:
+        raise AssertionError(f"phase 16: planted faults not caught: {missed}")
+
+
+def p16_card_phases(a: dict, results: dict, gpu: str, spent: dict) -> list:
+    """Phase 16's gates and readings on the card after (a)'s run, while
+    (b) runs on the host; returns the plants not caught."""
+    cfg, steps, l = a["cfg"], P16_RUN["steps"], P16_RUN["seq"]
+    parts = a["parts"][1:] or a["parts"]  # step 0 warms up
+    med = {k: float(np.median([p[k] for p in parts])) for k in ("forward", "backward",
+                                                                "optimizer")}
+    step_ms = 1e3 * sum(med.values())
+    cut = "" if a["batch"] == P16_RUN["batch"] else f" (cut from B {P16_RUN['batch']})"
+    log(f"[16] (a) {P16_ARCH} at full width and depth, remat {cfg.remat!r}: B {a['batch']}{cut} x "
+        f"{l}, {steps} AdamW steps through TrainRun.run in {a['wall']:.1f} s; launches K7 "
+        f"{a['launches']['k7']}, K7b {a['launches']['k7b']} (expected "
+        f"{train_launches(cfg, steps)}); losses {[round(x, 6) for x in a['losses']]}; step "
+        f"(median of steps 1-{steps - 1}; parts from CUDA events, one synchronization a step): "
+        f"forward {1e3 * med['forward']:.3f} ms, backward {1e3 * med['backward']:.3f} ms, "
+        f"optimizer {1e3 * med['optimizer']:.3f} ms, step {step_ms:.3f} ms, "
+        f"{a['batch'] * l / step_ms * 1e3:.1f} tokens/s; peak max_memory_allocated "
+        f"{a['peak']} bytes ({gpu})")
+    p16_launch_gate("(a)", a["launches"], cfg, steps)
+    if not all(math.isfinite(x) for x in a["losses"]):
+        raise AssertionError(f"(a) a loss is not finite: {a['losses']}")
+
+    t0 = time.perf_counter()
+    p16_card_counts(a, gpu)
+    spent["(c)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    missed = p16_count_plants(a, gpu)
+    spent["(d) count plants"] = time.perf_counter() - t0
+    del a["params"], a["opt_state"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    missed += p16_long_row_checks(a, gpu)
+    del a["k7b_records"], a["k7_record"]
+    torch.cuda.empty_cache()
+    spent["(a) kernel checks"] = time.perf_counter() - t0
+
+    # the roofline bound against the measured steps, and held memory beside the peaks
+    rec_a = p16_dryrun_cell("train", a["batch"], l)
+    mem_a = rec_a["memory"]
+    bound_a = 1e3 * max(rec_a["t_compute"], rec_a["t_memory"])
+    log(f"[16] (c) (a)'s step {step_ms:.3f} ms against the dry run's bound {bound_a:.3f} ms "
+        f"({rec_a['bottleneck']}): {step_ms / bound_a:.3f}x; temp_size_in_bytes "
+        f"{mem_a['temp_size_in_bytes']} (held at the end of the forward) beside "
+        f"max_memory_allocated - argument bytes {a['peak'] - mem_a['argument_size_in_bytes']} "
+        f"({gpu})")
+    if step_ms < bound_a:
+        raise AssertionError(f"(c) (a)'s step {step_ms:.3f} ms is below its bound {bound_a:.3f}")
+    p15 = results.get("p15")
+    if p15:
+        rec15 = p16_dryrun_cell("train", p15["batch"], p15["seq"])
+        mem15 = rec15["memory"]
+        bound15 = 1e3 * max(rec15["t_compute"], rec15["t_memory"])
+        log(f"[16] (c) phase 15's step {p15['step_ms']:.3f} ms against the dry run's bound "
+            f"{bound15:.3f} ms ({rec15['bottleneck']}): {p15['step_ms'] / bound15:.3f}x; "
+            f"temp_size_in_bytes {mem15['temp_size_in_bytes']} beside max_memory_allocated - "
+            f"argument bytes {p15['peak'] - mem15['argument_size_in_bytes']} ({gpu})")
+        if p15["step_ms"] < bound15:
+            raise AssertionError(f"(c) phase 15's step is below its bound {bound15:.3f} ms")
+
+    t0 = time.perf_counter()
+    p16_no_remat_reading(gpu)
+    spent["(a) no remat"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    missed += p16_remat_plant(gpu)
+    spent["(d) remat plant"] = time.perf_counter() - t0
+    return missed
 
 
 def phase6_profile(nsteps: int = 10) -> None:
@@ -4499,7 +5052,7 @@ def phase6_profile(nsteps: int = 10) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13,14,15",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all but 6)")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of an earlier tree whose K1, K3-K5, K7 and K7b phases "
@@ -4543,6 +5096,8 @@ def main() -> int:
         phase14_families()
     if 15 in phases:
         phase15_training(results, args.parent)
+    if 16 in phases:
+        phase16_remat_dryrun(results)
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
     if 1 not in phases:
         log(gpu_line())

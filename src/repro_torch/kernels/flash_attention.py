@@ -36,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 
 NEG_INF = -1e30
 _KIND = {torch.float32: 0, torch.bfloat16: 1}
@@ -278,11 +278,43 @@ def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
+def k7_cost(q, k, v, causal: bool, with_lse: bool) -> tuple:
+    """(FLOPs, bytes, on the tensor cores) of one K7 call, for the dry
+    run's counter (``kernels.cost``): 4 Dh FLOPs a visible (query, key)
+    pair (q.k and p.v), q, k, v read once, out (and lse) written once in
+    fp32. bf16 inputs run on the tensor cores."""
+    b, h, lq, dh = q.shape
+    pairs = cost.visible_pairs(lq, k.shape[2], causal)
+    nbytes = ((q.numel() + k.numel() + v.numel()) * q.element_size()
+              + b * h * lq * (dh + (1 if with_lse else 0)) * 4)
+    return 4 * dh * b * h * pairs, nbytes, q.dtype == torch.bfloat16
+
+
+def _forward(q, k, v, causal: bool, scale: float | None, with_lse: bool):
+    """One K7 call on q's device, counted as one under the dry run's
+    counter: the launch on CUDA tensors, the plain versions on CPU
+    tensors, empty outputs of the right shapes and dtypes on meta tensors
+    (never on CUDA ones). Returns (out, lse or None, the q, k, v it read)."""
+    def run(q, k, v):
+        if q.device.type == "cpu":
+            lse = lse_ref(q, k, causal=causal, scale=scale) if with_lse else None
+            return flash_attention_ref(q, k, v, causal=causal, scale=scale), lse, (q, k, v)
+        if q.device.type == "meta":
+            _check_qkv(q, k, v)
+            b, h, lq, dh = q.shape
+            lse = q.new_empty((b, h, lq), dtype=torch.float32) if with_lse else None
+            return q.new_empty((b, h, lq, dh), dtype=torch.float32), lse, (q, k, v)
+        return _launch(q, k, v, causal, scale, with_lse)
+
+    return cost.kernel("flash_attention", lambda q, k, v: k7_cost(q, k, v, causal, with_lse),
+                       run, (q, k, v))
+
+
 def _launch(q, k, v, causal: bool, scale: float | None, with_lse: bool):
     """Launch K7 on CUDA tensors: (out, lse or None, the q, k, v it read)."""
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {dev}")
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta tensors, got {dev}")
     if k.device != dev or v.device != dev:
         raise ValueError("q, k and v must be on one device")
     _check_qkv(q, k, v)
@@ -314,17 +346,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     is copied first.
 
     CPU tensors take :func:`flash_attention_ref`; CUDA tensors launch the
-    kernel or raise. Where an input needs a gradient, the call is an
+    kernel or raise; meta tensors (the dry run) give an empty output of
+    the right shape. Where an input needs a gradient, the call is an
     autograd op (:class:`Attention`): K7 also writes each row's
     logsumexp, and the backward launches K7b (:func:`flash_attention_bwd`);
     on CPU tensors the plain forward and :func:`flash_attention_bwd_ref`.
-    Otherwise (serving) the launch writes no logsumexp.
+    Otherwise (serving) the launch writes no logsumexp. Under the dry
+    run's counter a call counts :func:`k7_cost`.
     """
     if _needs_grad(q, k, v):
         return Attention.apply(q, k, v, causal, scale, False)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
-    return _launch(q, k, v, causal, scale, with_lse=False)[0]
+    return _forward(q, k, v, causal, scale, with_lse=False)[0]
 
 
 flash_attention.launches = 0
@@ -349,17 +381,18 @@ class Attention(torch.autograd.Function):
     the launch), its output and each row's logsumexp; the backward hands
     them and dO to K7b's wrapper, and casts dq, dk, dv (fp32) to q's, k's
     and v's dtypes. On CPU tensors the forward is the plain version (and
-    the wrapper takes its plain version); ``plain`` takes both plain
-    versions on any device."""
+    the wrapper takes its plain version), on meta tensors (the dry run)
+    both give empty outputs; ``plain`` takes both plain versions on any
+    device."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float | None, plain: bool):
         scale = float(scale if scale is not None else 1.0 / math.sqrt(q.shape[-1]))
-        if plain or q.device.type == "cpu":
+        if plain:
             out = flash_attention_ref(q, k, v, causal=causal, scale=scale)
             lse, read = lse_ref(q, k, causal=causal, scale=scale), (q, k, v)
         else:
-            out, lse, read = _launch(q, k, v, causal, scale, with_lse=True)
+            out, lse, read = _forward(q, k, v, causal, scale, with_lse=True)
         ctx.save_for_backward(*read, out, lse)
         ctx.causal, ctx.scale, ctx.plain = causal, scale, plain
         ctx.dtypes = (q.dtype, k.dtype, v.dtype)
@@ -474,14 +507,40 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     the kernels of ``csrc/flash_attention_bwd.cu`` or raise: for bf16 the
     tensor-core path (D and dO's split, dQ, dK and dV; a view TMA cannot
     read in place, :func:`tma_addressable`, is copied first), for fp32
-    the CUDA-core kernels (D and dQ, dK and dV).
+    the CUDA-core kernels (D and dQ, dK and dV). Meta tensors (the dry
+    run) give empty gradients of the right shapes. Under the dry run's
+    counter a call counts :func:`k7b_cost`.
     ``flash_attention_bwd.launches`` counts calls.
     """
+    def run(q, k, v, out, lse, dout):
+        if q.device.type == "cpu":
+            return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, scale=scale)
+        if q.device.type == "meta":
+            _check_qkv(q, k, v)
+            return tuple(t.new_empty(t.shape, dtype=torch.float32) for t in (q, k, v))
+        return _bwd_launch(q, k, v, out, lse, dout, causal, scale)
+
+    return cost.kernel("flash_attention_bwd", lambda q, k, v, *_: k7b_cost(q, k, v, causal),
+                       run, (q, k, v, out, lse, dout))
+
+
+def k7b_cost(q, k, v, causal: bool) -> tuple:
+    """(FLOPs, bytes, on the tensor cores) of one K7b call, for the dry
+    run's counter: 10 Dh FLOPs a visible pair (q.k, dO.v, P dO, dS k,
+    dS q), q, k, v, O, dO and lse read once, D and dq, dk, dv (fp32)
+    written once."""
+    b, h, lq, dh = q.shape
+    pairs = cost.visible_pairs(lq, k.shape[2], causal)
+    nbytes = ((q.numel() + k.numel() + v.numel()) * q.element_size()
+              + (2 * q.numel() + 2 * b * h * lq + q.numel() + k.numel() + v.numel()) * 4)
+    return 10 * dh * b * h * pairs, nbytes, q.dtype == torch.bfloat16
+
+
+def _bwd_launch(q, k, v, out, lse, dout, causal: bool, scale: float | None) -> tuple:
+    """Launch K7b's kernels on CUDA tensors: (dq, dk, dv) f32."""
     dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal, scale=scale)
     if dev.type != "cuda":
-        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, got {dev}")
+        raise ValueError(f"flash_attention_bwd runs on cuda, cpu or meta tensors, got {dev}")
     if any(t.device != dev for t in (k, v, out, lse, dout)):
         raise ValueError("q, k, v, out, lse and dout must be on one device")
     _check_qkv(q, k, v)

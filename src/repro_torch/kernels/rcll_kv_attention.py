@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import anchored
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.flash_attention import NEG_INF, compare, rounding_bound
 
 _RESID_KIND = {torch.int8: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -214,18 +214,51 @@ def rcll_kv_decode(q, k_resid, k_anchor, k_scale, v_resid, v_anchor, v_scale, le
 
     CPU tensors take :func:`rcll_kv_decode_ref`; CUDA tensors launch the
     kernel or raise (also when a cache block's K and V tiles do not fit
-    in the card's shared memory). A call keeps no state between
-    launches, so it can be captured in a CUDA graph and replayed.
+    in the card's shared memory); meta tensors (the dry run) give empty
+    outputs of the right shapes. A call keeps no state between
+    launches, so it can be captured in a CUDA graph and replayed. Under
+    the dry run's counter a call counts :func:`k6_cost`.
     """
     args = (q, k_resid, k_anchor, k_scale, v_resid, v_anchor, v_scale, length)
+
+    def run(*args):
+        q = args[0]
+        if q.device.type == "cpu":
+            return rcll_kv_decode_ref(*args, scale=scale, return_stats=return_stats)
+        if q.device.type == "meta":
+            _check_inputs(*args)
+            b, h, dh = q.shape
+            out = q.new_empty((b, h, dh))
+            return (out, q.new_empty((b, h)), q.new_empty((b, h))) if return_stats else out
+        return _launch(args, scale, return_stats)
+
+    return cost.kernel("rcll_kv_decode", lambda q, k_resid, *_: k6_cost(q, k_resid), run, args)
+
+
+def k6_cost(q, k_resid) -> tuple:
+    """(FLOPs, bytes, on the tensor cores: no) of one K6 call, for the dry
+    run's counter. Every key of the cache's capacity is counted, whatever
+    the lengths (a count from shapes alone, the same on meta and on the
+    card): per key and kv head, 4 Dh to dequantize k and v and 4 Dh for
+    each of its query heads (q.k and p.v); the residuals, anchors and
+    scales of every block read once, q read and out, m, l written in fp32."""
+    b, h, dh = q.shape
+    _, hkv, nblk, blk, _ = k_resid.shape
+    keys = b * hkv * nblk * blk
+    nbytes = (b * hkv * nblk * (2 * blk * dh * k_resid.element_size() + 4 * dh * 4)
+              + q.numel() * 4 + b * h * (dh + 2) * 4 + b * 4)
+    return keys * dh * (4 + 4 * (h // hkv)), nbytes, False
+
+
+def _launch(args, scale, return_stats: bool):
+    """Launch K6 on CUDA tensors."""
+    q, k_resid = args[0], args[1]
     dev = q.device
-    if dev.type == "cpu":
-        return rcll_kv_decode_ref(*args, scale=scale, return_stats=return_stats)
     if dev.type != "cuda":
-        raise ValueError(f"rcll_kv_decode runs on cuda or cpu tensors, got {dev}")
+        raise ValueError(f"rcll_kv_decode runs on cuda, cpu or meta tensors, got {dev}")
     _check_inputs(*args)
-    q, length = q.contiguous(), length.contiguous()
-    args = (q, k_resid, k_anchor, k_scale, v_resid, v_anchor, v_scale, length)
+    q, length = args[0].contiguous(), args[7].contiguous()
+    args = (q, *args[1:7], length)
     b, h, dh = q.shape
     _, hkv, nblk, blk, _ = k_resid.shape
     scale = float(scale if scale is not None else 1.0 / math.sqrt(dh))

@@ -2,9 +2,11 @@
 -> checkpoint/restart -> heartbeat + straggler watchdog.
 
 Port of ``repro.launch.train``. Where JAX takes ``jax.value_and_grad``
-of ``loss_fn`` under ``jax.jit``, a step here runs the family's
-``loss_fn`` forward, ``loss.backward()`` and ``optim.adamw.apply_updates``
-(in place). On the GPU the attention's gradient is the hand-written K7b
+of ``loss_fn`` under ``jax.jit``, a step here (:func:`train_step`) runs
+the family's ``loss_fn`` forward, ``loss.backward()`` and
+``optim.adamw.apply_updates`` (in place); with the config's
+``remat="full"`` the backward recomputes each layer body. On the GPU
+the attention's gradient is the hand-written K7b
 (``kernels.flash_attention``); on the CPU its plain version. Parameters
 are fp32 masters; the forward casts each weight to bf16 at use, as JAX
 does. One card: ``mesh_shape`` other than () raises until the sharding
@@ -73,6 +75,29 @@ def _seconds(a, b) -> float:
     return a.elapsed_time(b) * 1e-3
 
 
+def train_step(mod, cfg, ocfg: adamw.OptConfig, params: dict, opt_state: adamw.OptState,
+               batch: dict, mark=lambda part: None):
+    """One training step, IN PLACE: ``mod.loss_fn``'s forward (its layer
+    bodies checkpointed under ``cfg.remat``), the backward and AdamW's
+    update. ``mark(part)`` is called at the start and after each part
+    ("forward", "backward", "optimizer"). Returns (params, opt_state,
+    metrics: the loss, the family's metrics, the lr and grad norm). The
+    dry run counts this function on meta tensors."""
+    mark("start")
+    for p in adamw.tree_leaves(params):
+        p.grad = None
+    with deterministic_algorithms():
+        loss, metrics = mod.loss_fn(params, batch, cfg)
+        mark("forward")
+        loss.backward()
+    mark("backward")
+    grads = adamw.tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
+                           params)
+    params, opt_state, om = adamw.apply_updates(ocfg, params, grads, opt_state)
+    mark("optimizer")
+    return params, opt_state, {"loss": loss.detach(), **metrics, **om}
+
+
 @dataclasses.dataclass
 class TrainRun:
     """Reusable programmatic entry (tests and chip_smoke.py drive this)."""
@@ -104,7 +129,8 @@ class TrainRun:
         return dataclasses.replace(cfg, n_layers=self.n_layers or cfg.n_layers)
 
     def build(self):
-        """(cfg, mod, dev, params, opt_state, dcfg, train_step)."""
+        """(cfg, mod, dev, params, opt_state, dcfg, step): ``step(params,
+        opt_state, batch)`` runs :func:`train_step` with the modality stubs."""
         if self.mesh_shape:
             raise NotImplementedError(
                 f"mesh_shape {self.mesh_shape}: sharding is not ported; one device only")
@@ -125,25 +151,17 @@ class TrainRun:
                           seed=self.seed)
         stubs = self._with_stubs
 
-        def train_step(params, opt_state, batch):
+        def step(params, opt_state, batch):
             """One step. ``metrics["marks"]``: (part, ``_stamp``) at its
             start and after the forward, the backward and the optimizer;
             read them with ``step_parts`` once the step's loss is read."""
-            marks = [("start", _stamp(dev))]
-            for p in adamw.tree_leaves(params):
-                p.grad = None
-            with deterministic_algorithms():
-                loss, metrics = mod.loss_fn(params, stubs(batch, cfg), cfg)
-                marks.append(("forward", _stamp(dev)))
-                loss.backward()
-            marks.append(("backward", _stamp(dev)))
-            grads = adamw.tree_map(
-                lambda p: p.grad if p.grad is not None else torch.zeros_like(p), params)
-            params, opt_state, om = adamw.apply_updates(ocfg, params, grads, opt_state)
-            marks.append(("optimizer", _stamp(dev)))
-            return params, opt_state, {"loss": loss.detach(), **metrics, **om, "marks": marks}
+            marks = []
+            params, opt_state, m = train_step(
+                mod, cfg, ocfg, params, opt_state, stubs(batch, cfg),
+                mark=lambda part: marks.append((part, _stamp(dev))))
+            return params, opt_state, {**m, "marks": marks}
 
-        return cfg, mod, dev, params, opt_state, dcfg, train_step
+        return cfg, mod, dev, params, opt_state, dcfg, step
 
     @staticmethod
     def _with_stubs(batch, cfg):
@@ -173,7 +191,7 @@ class TrainRun:
         ``ckpt_dir`` holds one). Returns the losses, grad norms, wall
         seconds a step and its parts' (forward, backward, optimizer; from
         CUDA events on the GPU), the final parameters and optimizer state."""
-        cfg, mod, dev, params, opt_state, dcfg, train_step = self.build()
+        cfg, mod, dev, params, opt_state, dcfg, step_fn = self.build()
         start_step = 0
         ckpt = CheckpointManager(self.ckpt_dir) if self.ckpt_dir else None
         if ckpt is not None:
@@ -202,7 +220,7 @@ class TrainRun:
         losses, grad_norms, step_s, parts = [], [], [], []
         for step in range(start_step, self.steps):
             t0 = time.time()
-            params, opt_state, m = train_step(params, opt_state, make_batch(dcfg, step, dev))
+            params, opt_state, m = step_fn(params, opt_state, make_batch(dcfg, step, dev))
             loss = float(m["loss"])  # the step's one synchronization
             parts.append(step_parts(m["marks"]))
             losses.append(loss)

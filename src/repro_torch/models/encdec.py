@@ -67,13 +67,31 @@ def encode(params, frames, cfg):
     h = frames.to(layers.DEFAULT_COMPUTE)
     h = h + layers.sinusoidal_positions(s, cfg.d_model, h.device).to(h.dtype)
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    remat = tf.remat_active(cfg, params)
     for i in range(cfg.n_enc_layers):
-        p_l = tf.layer_params(params, i, "enc_layers")
-        out, _ = attn_lib.attention_full(p_l["attn"], layers.layer_norm(p_l["ln1"], h), positions,
-                                         causal=False, use_rope=False, **_heads(cfg))
-        h = h + out
-        h = h + layers.gelu_mlp(p_l["mlp"], layers.layer_norm(p_l["ln2"], h))
+        # the frames need no gradient, so the reentrant form would see none
+        h = tf.run_body(remat, _enc_body, cfg, tf.layer_params(params, i, "enc_layers"), h,
+                        positions, reentrant=False)
     return layers.layer_norm(params["enc_norm"], h)
+
+
+def _enc_body(cfg, p_l, h, positions):
+    """One encoder layer (JAX's encoder ``body``, checkpointed under ``remat``)."""
+    out, _ = attn_lib.attention_full(p_l["attn"], layers.layer_norm(p_l["ln1"], h), positions,
+                                     causal=False, use_rope=False, **_heads(cfg))
+    h = h + out
+    return h + layers.gelu_mlp(p_l["mlp"], layers.layer_norm(p_l["ln2"], h))
+
+
+def _dec_body(cfg, p_l, h, enc_out, positions):
+    """One decoder layer and its (k, v) (JAX's decoder ``body``,
+    checkpointed under ``remat``)."""
+    out, kv = attn_lib.attention_full(p_l["attn"], layers.layer_norm(p_l["ln1"], h), positions,
+                                      use_rope=False, **_heads(cfg))
+    h = h + out
+    h = h + attn_lib.cross_attention(p_l["xattn"], layers.layer_norm(p_l["ln_x"], h), enc_out,
+                                     **_heads(cfg))
+    return h + layers.gelu_mlp(p_l["mlp"], layers.layer_norm(p_l["ln2"], h)), kv
 
 
 def decoder_forward(params, tokens, enc_out, cfg, *, return_cache=False):
@@ -84,14 +102,11 @@ def decoder_forward(params, tokens, enc_out, cfg, *, return_cache=False):
     h = h + layers.sinusoidal_positions(l, cfg.d_model, h.device).to(h.dtype)
     positions = torch.arange(l, device=h.device)[None].expand(b, l)
     ks, vs = [], []
+    remat = tf.remat_active(cfg, params)
     for i in range(cfg.n_layers):
-        p_l = tf.layer_params(params, i)
-        out, (k, v) = attn_lib.attention_full(p_l["attn"], layers.layer_norm(p_l["ln1"], h),
-                                              positions, use_rope=False, **_heads(cfg))
-        h = h + out
-        h = h + attn_lib.cross_attention(p_l["xattn"], layers.layer_norm(p_l["ln_x"], h),
-                                         enc_out, **_heads(cfg))
-        h = h + layers.gelu_mlp(p_l["mlp"], layers.layer_norm(p_l["ln2"], h))
+        # every decoder layer reads enc_out
+        h, (k, v) = tf.run_body(remat, _dec_body, cfg, tf.layer_params(params, i), h, enc_out,
+                                positions, reentrant=False)
         if return_cache:
             ks.append(k)
             vs.append(v)

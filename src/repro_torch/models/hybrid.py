@@ -94,17 +94,25 @@ def _site_after(cfg, i: int) -> int | None:
     return i // ae if (i + 1) % ae == 0 and i < n_sites(cfg) * ae else None
 
 
+def _mamba_body(cfg, p_l, h):
+    """One mamba layer with its residual (JAX's ``mamba_body``, the part
+    ``remat`` checkpoints; the shared block is not)."""
+    out, cache = mamba2.mamba2_forward(p_l["mixer"], layers.rms_norm(p_l["ln1"], h),
+                                       cfg.ssm_dims, chunk=cfg.ssd_chunk)
+    return h + out, cache
+
+
 def forward(params, tokens, cfg, *, patch_embeds=None, return_cache=False):
     b, l = tokens.shape
     h = layers.embed(params["embed_tokens"], tokens)
     emb0 = h
     positions = torch.arange(l, device=tokens.device)[None].expand(b, l)
     m_caches, s_caches = [], []
+    remat = tf.remat_active(cfg, params)
     for i in range(cfg.n_layers):
-        p_l = tf.layer_params(params, i)
-        out, cache = mamba2.mamba2_forward(p_l["mixer"], layers.rms_norm(p_l["ln1"], h),
-                                           cfg.ssm_dims, chunk=cfg.ssd_chunk)
-        h = h + out
+        # layer 0's input is emb0, which every shared-block site reads too
+        h, cache = tf.run_body(remat, _mamba_body, cfg, tf.layer_params(params, i), h,
+                               reentrant=i > 0)
         if return_cache:
             m_caches.append(cache)
         if _site_after(cfg, i) is not None:

@@ -23,12 +23,27 @@ _PHI_LO = 0.5 * (1.0 + math.erf(-3.0 / math.sqrt(2.0)))
 _PHI_HI = 0.5 * (1.0 + math.erf(3.0 / math.sqrt(2.0)))
 
 
+class ShapeOnly:
+    """Stands in for a ``torch.Generator`` on the meta device, which torch
+    cannot make: the ``init_*`` functions given :data:`SHAPE_ONLY` run as
+    they do for a real generator and return meta tensors of the same
+    shapes and dtypes, drawing and allocating nothing (the registry's
+    ``abstract_params``)."""
+
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = ShapeOnly()
+
+
 def truncated_normal(gen: torch.Generator, shape, scale: float, dtype=torch.float32):
     """``scale`` times a standard normal truncated to [-3, 3], drawn by
     inverse-CDF sampling from ``gen`` on its device (JAX's
     ``truncated_normal(key, -3, 3)``; the two give different numbers
-    from the same seed)."""
+    from the same seed). With :data:`SHAPE_ONLY`, an empty meta tensor."""
     out = torch.empty(shape, dtype=dtype, device=gen.device)
+    if out.is_meta:
+        return out
     out.uniform_(2.0 * _PHI_LO - 1.0, 2.0 * _PHI_HI - 1.0, generator=gen)
     return out.erfinv_().mul_(math.sqrt(2.0)).clamp_(-3.0, 3.0).mul_(scale)
 
@@ -96,8 +111,9 @@ def _sinusoidal_table(length: int, d: int) -> torch.Tensor:
 
 def sinusoidal_positions(length: int, d: int, device=None) -> torch.Tensor:
     """(length, d) fp32 sin/cos table, computed in float64 numpy as JAX's
-    is (so the two are bit-equal)."""
-    return _sinusoidal_table(length, d).to(device)
+    is (so the two are bit-equal); a copy on every device, the CPU too,
+    so the dry run's counter sees the same ops everywhere."""
+    return _sinusoidal_table(length, d).to(device, copy=True)
 
 
 # --------------------------------------------------------------------------

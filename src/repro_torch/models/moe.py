@@ -52,6 +52,15 @@ def top_k(score: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def expert_counts(idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """(n_experts,) int64: how often each expert id occurs in ``idx``
+    (``torch.bincount``'s integers, by a scatter-add that every device,
+    meta included, runs; integer sums do not depend on their order)."""
+    flat = idx.reshape(-1).long()
+    return torch.zeros(n_experts, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def router_topk(p: dict, x: torch.Tensor, top_k_: int, *, bias=None):
     """Softmax-then-topk router (DeepSeek style). x: (T, d). Returns
     (weights (T, k) fp32, experts (T, k) int32, aux load-balance loss)."""
@@ -62,7 +71,7 @@ def router_topk(p: dict, x: torch.Tensor, top_k_: int, *, bias=None):
         w = torch.gather(probs, 1, idx)
     # aux loss (Switch): E * mean_e(frac_tokens_e * mean_prob_e)
     n_experts = probs.shape[-1]
-    hits = torch.bincount(idx.reshape(-1), minlength=n_experts).float()
+    hits = expert_counts(idx, n_experts).float()
     frac = hits / hits.sum().clamp_min(1.0)
     aux = n_experts * torch.sum(frac * probs.mean(dim=0))
     return w, idx.to(torch.int32), aux
@@ -88,7 +97,7 @@ def dispatch_sort(x: torch.Tensor, expert_idx: torch.Tensor, weights: torch.Tens
     flat_e = expert_idx.reshape(-1).long()  # (T*k,)
     order = torch.argsort(flat_e, stable=True)  # stable: token order kept
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    counts = expert_counts(flat_e, n_experts)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(n_tok * k, device=x.device) - starts[sorted_e]
     keep = pos < capacity_

@@ -7,8 +7,10 @@ bodies and helpers). Parameters are a nested dict with JAX's keys
 (``embed_tokens.embed``, ``layers.attn.wq``, ``final_norm.norm_w``, ...),
 the per-layer tensors stacked along a leading (n_layers, ...) axis; caches
 are NamedTuples of stacked (n_layers, ...) tensors, in JAX's layouts. A
-Python loop over layers takes the place of ``lax.scan``. ``remat`` only
-changes what JAX keeps for a backward pass, and ``attn_kv_hoist``,
+Python loop over layers takes the place of ``lax.scan``. ``remat="full"``
+runs each layer body under ``torch.utils.checkpoint`` where JAX wraps it
+in ``jax.checkpoint`` (:func:`run_body`): a training forward keeps only
+each layer's input and the backward recomputes the body. ``attn_kv_hoist``,
 ``moe_cap_shard`` and JAX's ``pt.act*`` are sharding hints, the identity
 on one device: they keep their fields here and have no effect.
 """
@@ -18,6 +20,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, mamba2, mla, moe
@@ -151,6 +154,45 @@ def _layer(t: torch.Tensor, i: int) -> torch.Tensor:
     if t.requires_grad and t.is_leaf and torch.is_grad_enabled():
         return _LayerSlice.apply(t, i)
     return t[i]
+
+
+def remat_active(cfg, params: dict) -> bool:
+    """Whether a forward runs its layer bodies under :func:`run_body`'s
+    checkpoint: ``cfg.remat == "full"`` and autograd records (grad mode on,
+    a parameter needs a gradient). Serving (``no_grad``, inference mode)
+    never pays for a checkpoint."""
+    return (cfg.remat == "full" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in _leaves(params)))
+
+
+def run_body(remat: bool, body, *args, reentrant: bool = True):
+    """``body(*args)``; with ``remat``, under ``torch.utils.checkpoint``,
+    JAX's ``jax.checkpoint``: the forward keeps ``args`` and none of the
+    body's own tensors, and the backward runs the body again to rebuild
+    them (K7 again, with its logsumexp, where the body attends). The
+    layers' parameters come in ``args``, sliced outside the body, so each
+    layer's ``_LayerSlice`` backward runs once a step. No layer draws
+    random numbers, so no RNG state is kept.
+
+    The reentrant form runs the forward under ``no_grad`` and, in the
+    backward, backpropagates through the recomputed body as one node: the
+    gradient of a tensor in ``args`` reaches the rest of the graph as one
+    sum. The non-reentrant form records the graph in the forward and drops
+    each saved tensor through a Python hook (1,247 a llama3.2-3b forward),
+    which made the forward host-bound and the step ~30 ms slower on the
+    H100 (``tools/remat_forms.py``, PERF.md), but it keeps the graph's
+    nodes, so every gradient sums in the order it would without remat. A
+    caller whose ``args`` hold a tensor that is also read outside the body
+    passes ``reentrant=False``, so that remat stays bit-equal to none. So
+    does one whose tensor ``args`` need no gradient: the reentrant form
+    sees only tensor ``args`` (not the parameters' dict), and would give
+    the body's parameters none (raises ValueError)."""
+    if not remat:
+        return body(*args)
+    if reentrant and not any(isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        raise ValueError("reentrant remat needs a tensor argument that requires a gradient")
+    return torch.utils.checkpoint.checkpoint(body, *args, use_reentrant=reentrant,
+                                             preserve_rng_state=False)
 
 
 def layer_params(params: dict, i: int, stack: str = "layers") -> dict:
@@ -332,8 +374,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *, patch_embeds
     positions = torch.arange(l, device=tokens.device)[None].expand(b, l)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = []
+    remat = remat_active(cfg, params)
     for i in range(cfg.n_layers):
-        h, cache_l, aux_l = layer_forward(cfg, layer_params(params, i), h, positions)
+        h, cache_l, aux_l = run_body(remat, layer_forward, cfg, layer_params(params, i), h,
+                                     positions)
         aux = aux + aux_l
         if return_cache:
             caches.append(cache_l)

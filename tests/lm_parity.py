@@ -408,15 +408,16 @@ def train_batch(cfg, b: int = 2, l: int = 32, step: int = 0):
             {"tokens": torch.as_tensor(toks), "labels": torch.as_tensor(toks), **kw_t})
 
 
-def loss_and_grads_both(arch: str, b: int = 2, l: int = 32):
+def loss_and_grads_both(arch: str, b: int = 2, l: int = 32, **cfg_kw):
     """``loss_fn`` and every parameter's gradient of ``arch`` at SMOKE in
     both packages, from JAX's parameters carried across: JAX by
     ``jax.value_and_grad`` (``jax_mode``: op by op for the MoE families),
     the port by ``backward()``. Returns a dict: the losses and metrics of
     both, the gradients of both keyed by JAX path (None where the port
     gave none), the port's logits for the tolerance, and the router flips (an
-    empty array without a router)."""
-    cj, ct = cfgs(arch)
+    empty array without a router). ``cfg_kw`` replaces config fields in
+    both (e.g. ``remat``)."""
+    cj, ct = cfgs(arch, **cfg_kw)
     jm, tm = jreg.get_module(cj), treg.get_module(ct)
     pj, pt = params(arch)
     _, bj, bt = train_batch(cj, b, l)
@@ -442,15 +443,16 @@ def loss_and_grads_both(arch: str, b: int = 2, l: int = 32):
             "router_log": log}
 
 
-def assert_loss_and_grads_close(arch: str, b: int = 2, l: int = 32):
+def assert_loss_and_grads_close(arch: str, b: int = 2, l: int = 32, **cfg_kw):
     """The port's ``loss_fn`` against JAX's: the cross-entropy within twice
     the logits' tolerance (``lse`` and the label's logit each move by at
     most the largest logit difference; the z-loss adds 2e-4 |lse| of it),
     the MoE load-balance loss within the router's bound (each probability
     within ``expm1(2 delta)`` relative, ``router_margin_bound``'s delta at 4
     input ulps), and each gradient within :data:`GRAD_TOL_ULPS` normwise,
-    every leaf differentiable. Returns the worst normwise reading."""
-    r = loss_and_grads_both(arch, b, l)
+    every leaf differentiable. Returns the worst normwise reading.
+    ``cfg_kw`` replaces config fields in both packages."""
+    r = loss_and_grads_both(arch, b, l, **cfg_kw)
     assert r["flips"].size == 0, f"router flips at tokens {r['flips']}: not comparable"
     tol = float(ttr.logit_tolerance(torch.as_tensor(r["logits"])).max())
     lse_max = float(np.abs(np.log(np.exp(r["logits"].astype(np.float64)).sum(-1))).max())

@@ -256,8 +256,11 @@ def test_bwd_wrapper_cpu_and_device_rules():
     args = k7.random_bwd_inputs(2, 1, 2, 1, 8, 8, 16, torch.float32)
     for g, w in zip(k7.flash_attention_bwd(*args), k7.flash_attention_bwd_ref(*args)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        k7.flash_attention_bwd(*(t.to("meta") for t in args))
+    meta = k7.flash_attention_bwd(*(t.to("meta") for t in args))
+    for g, t in zip(meta, args[:3]):  # the dry run's shape-only path
+        assert g.is_meta and g.shape == t.shape and g.dtype == torch.float32
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        k7._bwd_launch(*args, True, None)
 
 
 def test_attention_full_gradients_reach_the_weights():

@@ -1055,3 +1055,41 @@ def test_smoke_model_trains_through_k7_and_k7b(cuda_device):
     assert tfa.flash_attention_bwd.launches - b0 == 2 * 3
     for name in ("wq", "wk", "wv"):
         assert out["params"]["layers"]["attn"][name].grad.abs().sum() > 0
+
+
+# --------------------------------------------------------------------------
+# the dry run's counts (kernels.cost) on the card
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_counts_on_the_card_equal_meta(cuda_device, dtype, causal):
+    """K6, K7 and K7b on CUDA tensors launch their kernels (the meta path
+    is never taken: real outputs, the launch counters move) and count under
+    the dry run's counter what they count on meta for the same shapes."""
+    from repro_torch.kernels import cost
+
+    a = tfa.random_bwd_inputs(5, 2, 8, 2, 200, 200, 64, dtype, causal=causal)
+    kv = tkv.random_inputs(6, 2, 8, 2, 64, 3, 128, torch.int8, [300, 17])
+    counts = {}
+    for dev in ("meta", cuda_device):
+        a_d, kv_d = tuple(t.to(dev) for t in a), tuple(t.to(dev) for t in kv)
+        before = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches,
+                  tkv.rcll_kv_decode.launches)
+        with cost.CostCounter() as c:
+            out = tfa.flash_attention(*a_d[:3], causal=causal)
+            grads = tfa.flash_attention_bwd(*a_d, causal=causal)
+            dec = tkv.rcll_kv_decode(*kv_d)
+        after = (tfa.flash_attention.launches, tfa.flash_attention_bwd.launches,
+                 tkv.rcll_kv_decode.launches)
+        assert c.aten_flops == 0
+        counts[str(dev)] = c.kernels
+        if dev != "meta":
+            torch.cuda.synchronize()
+            assert after == tuple(x + 1 for x in before)
+            assert not any(t.is_meta for t in (out, dec, *grads))
+            assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(dec).all())
+        else:
+            assert after == before
+    assert counts["meta"] == counts["cuda"]
+    assert set(counts["cuda"]) == {"flash_attention", "flash_attention_bwd", "rcll_kv_decode"}

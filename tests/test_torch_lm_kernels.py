@@ -176,12 +176,20 @@ def test_rcll_kv_decode_ref_stats():
 
 
 def test_wrappers_reject_other_devices():
+    """Meta tensors (the dry run) take the shape-only path; the launch
+    paths take CUDA tensors alone and raise on any other device."""
     ts, _, _ = _kv_inputs(1, 2, 1, 16, 1, 64, torch.int8, seed=7)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        tkv.rcll_kv_decode(*(t.to("meta") for t in ts))
+    out = tkv.rcll_kv_decode(*(t.to("meta") for t in ts))
+    assert out.is_meta and out.shape == ts[0].shape and out.dtype == torch.float32
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        tkv._launch(ts, None, False)
     _, qkv = _qkv(1, 2, 1, 8, 8, 16, "fp32", seed=8)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        tfa.flash_attention(*(t.to("meta") for t in qkv))
+    out = tfa.flash_attention(*(t.to("meta") for t in qkv))
+    assert out.is_meta and out.shape == qkv[0].shape and out.dtype == torch.float32
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        tfa._launch(*qkv, True, None, False)
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        tfa._bwd_launch(*qkv, qkv[0], torch.zeros(qkv[0].shape[:3]), qkv[0], True, None)
 
 
 # --------------------------------------------------------------------------
