@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 1,15   # build + llama3.2-3b trained (K7, K7b)
     python3 chip_smoke.py --phases 1,15 --parent build/parent  # K7b beside an earlier tree's
     python3 chip_smoke.py --phases 1,16   # build + remat at 4096-token rows, the dry run
+    python3 chip_smoke.py --phases 1,17   # build + sharding on one card (a (1, 1) mesh)
     python3 chip_smoke.py --phases 1,9 --parent build/parent  # K7 beside an earlier tree's
     python3 chip_smoke.py --phases 1,3,8 --parent build/parent  # K1, K3, K4, K5 beside it
     python3 chip_smoke.py --phases 1,8 --parent build/parent    # K3, K4 and K5 beside it
@@ -270,7 +271,27 @@ Phases (each prints its own lines and raises on failure):
      ``temp_size_in_bytes`` beside the peak less the argument bytes;
      (d) planted faults: a remat that keeps the config's "full" but skips
      the recompute -> (a)'s launch gate, K7's count without the causal
-     half and K7b's count left out -> (c)'s FLOP gate.
+     half and K7b's count left out -> (c)'s FLOP gate;
+ 17. sharding on one card: (a) ``TrainRun("llama3.2-3b",
+     mesh_shape=(1, 1))`` at phase 15 (c)'s settings (full width and
+     depth, B 2 x 1024, remat "full", 6 steps; a one-rank NCCL group, the
+     masters, moments and batch replicated DTensors, K7 and K7b on each
+     rank's local shards), then the same run without a mesh: losses, final
+     parameters and both moments bit-equal; K7 336 and K7b 168 launches
+     on the mesh run (counts zeroed just before and read just after);
+     readings: ms a step by part and the host's step for both, their peak
+     memory, DTensor's host cost (the difference); (b) K7 and K7b on each
+     model rank's head shard of (2, 24, 1024, 128) bf16 causal, 8 kv heads
+     (``attention.check_head_shards``), at model degrees 2, 4, 8 (whole kv
+     groups) and 3, 16 (groups cut: a call per piece of a rank's heads
+     inside a group): outputs and dQ bit-equal
+     to the whole call, dK and dV bit-equal with whole groups, else within
+     K7b's rounding bound and one bf16 rounding of each rank's part, one
+     launch each per shard call; (c) planted
+     faults: the kv heads one group off in the local-shard helper -> (b),
+     the mesh path's attention through the plain versions on its CUDA
+     shards -> (a)'s launch gate. K7's and K7b's rows of the kernel table
+     add (a)'s mesh launches.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -4999,6 +5020,226 @@ def p16_card_phases(a: dict, results: dict, gpu: str, spent: dict) -> list:
     return missed
 
 
+# --------------------------------------------------------------------------
+# phase 17: sharding on one card
+# --------------------------------------------------------------------------
+P17_ARCH = "llama3.2-3b"
+#: (a): phase 15 (c)'s settings (B 2 x 1024, 6 AdamW steps, seed 0, lr 1e-3)
+P17_RUN = P15_RUN
+#: (b): llama3.2-3b's layer shapes (B, H, Hkv, L, Dh), bf16, causal
+P17_SHAPE = (2, 24, 8, 1024, 128)
+#: (b): model degrees; 2, 4 and 8 keep whole kv groups (rep 3), 3 and 16
+#: cut them (16: two heads a rank, four ranks empty)
+P17_DEGREES = (2, 4, 8, 3, 16)
+#: (c): the launch gate's plant, a depth cut (full widths), one step of B 1
+P17_PLANT_RUN = dict(n_layers=2, batch=1, steps=1)
+#: Module globals read at call time (a CPU rehearsal sets "cpu" and SMOKE).
+P17_DEVICE = "cuda"
+P17_SMOKE = False
+
+
+def p17_train_run(mesh_shape: tuple, **kw):
+    from repro_torch.launch.train import TrainRun
+
+    return TrainRun(arch=P17_ARCH, smoke=P17_SMOKE, device=P17_DEVICE, mesh_shape=mesh_shape,
+                    **{**P17_RUN, **kw})
+
+
+def p17_train(mesh_shape: tuple, **kw) -> dict:
+    """One ``TrainRun`` (on a mesh when ``mesh_shape``): K7 and K7b counts
+    zeroed just before and read just after, wall time, peak memory, each
+    step's parts and host seconds; the final fp32 parameters and both
+    moments copied to the host leaf by leaf (a DTensor's local tensor) and
+    the run's device memory freed."""
+    from repro_torch.optim import adamw
+
+    run = p17_train_run(mesh_shape, **kw)
+    K7, K7b = wrapper("k7"), wrapper("k7b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K7.launches = 0
+    K7b.launches = 0
+    t0 = time.perf_counter()
+    out = run.run()
+    torch.cuda.synchronize()
+    res = {"launches": {"k7": K7.launches, "k7b": K7b.launches},
+           "wall": time.perf_counter() - t0, "peak": torch.cuda.max_memory_allocated(),
+           "losses": out["losses"], "parts": out["parts"], "step_s": out["step_s"],
+           "cfg": run.config(), "trees": []}
+    for tree in (out["params"], out["opt_state"].mu, out["opt_state"].nu):
+        for t in adamw.tree_leaves(tree):
+            t = t.detach()
+            res["trees"].append((t.to_local() if hasattr(t, "to_local") else t).to(
+                "cpu", copy=True))
+    del out, run
+    torch.cuda.empty_cache()
+    return res
+
+
+def p17_launch_gate(label: str, launches: dict, cfg, steps: int) -> None:
+    want = train_launches(cfg, steps)
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+
+
+def p17_medians(r: dict) -> dict:
+    """Median ms of each part and of the host's step (steps 1 on; step 0
+    warms up)."""
+    parts = r["parts"][1:] or r["parts"]
+    med = {k: 1e3 * float(np.median([p[k] for p in parts]))
+           for k in ("forward", "backward", "optimizer")}
+    med["host_step"] = 1e3 * float(np.median(r["step_s"][1:] or r["step_s"]))
+    return med
+
+
+def p17_mesh_vs_plain(gpu: str) -> dict:
+    """(a): the (1, 1) mesh run, then the run without a mesh, one after the
+    other in this process (each peaks near the card's memory, so the first
+    is on the host before the second starts): losses, final parameters and
+    moments bit-equal; the mesh run's launches."""
+    mesh = p17_train((1, 1))
+    p17_launch_gate("(a) the (1, 1) mesh run", mesh["launches"], mesh["cfg"], P17_RUN["steps"])
+    plain = p17_train(())
+    if mesh["losses"] != plain["losses"]:
+        raise AssertionError(f"(a) losses differ: mesh {mesh['losses']}, none {plain['losses']}")
+    diff = [i for i, (a, b) in enumerate(zip(mesh["trees"], plain["trees"], strict=True))
+            if not torch.equal(a, b)]
+    if diff:
+        raise AssertionError(f"(a) {len(diff)} of {len(plain['trees'])} final leaves (parameters, "
+                             f"mu, nu) differ, the first at {diff[0]}")
+    n = len(plain["trees"])
+    for r in (mesh, plain):
+        del r["trees"]
+    return {"mesh": mesh, "plain": plain, "leaves": n}
+
+
+def p17_head_shards(local=None) -> list:
+    """(b): ``attention.check_head_shards`` at :data:`P17_SHAPE` for each
+    degree of :data:`P17_DEGREES` (``local`` a planted helper), the K7 and
+    K7b launches of each (its shard calls and one whole call)."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.models import attention as attn
+
+    b, h, hkv, l, dh = P17_SHAPE
+    q, k, v = k7.random_inputs(1700, b, h, hkv, l, l, dh, torch.bfloat16, heads_last=True,
+                               device=P17_DEVICE)
+    gen = torch.Generator(device=P17_DEVICE).manual_seed(1700)
+    dout = torch.randn(q.shape, generator=gen, device=P17_DEVICE)
+    K7, K7b = wrapper("k7"), wrapper("k7b")
+    rows = []
+    for degree in P17_DEGREES:
+        K7.launches = 0
+        K7b.launches = 0
+        r = attn.check_head_shards(q, k, v, dout, degree, causal=True, local=local)
+        r["launches"] = (K7.launches, K7b.launches)
+        rows.append((degree, r))
+    return rows
+
+
+def p17_shard_gate(rows: list) -> None:
+    _, h, hkv, _, _ = P17_SHAPE
+    for degree, r in rows:
+        want = (r["calls"] + 1, r["calls"] + 1)  # the shard calls and the whole call
+        whole = -(-h // degree) % (h // hkv) == 0  # each rank's ceil(H / degree) heads
+        if not r["ok"] or r["launches"] != want or r["whole_groups"] != whole:
+            raise AssertionError(f"(b) degree {degree}: {r}, launches expected {want}")
+
+
+def _kv_one_group_off(q, k, v, h0, h1, n_heads, *, causal):
+    """The local-shard helper with its kv heads one group off."""
+    from repro_torch.models import attention as attn
+
+    return attn.local_attention(q, k.roll(-1, 1), v.roll(-1, 1), h0, h1, n_heads, causal=causal)
+
+
+def p17_planted_faults(gpu: str) -> list:
+    """(c): a kv-head offset one group off in the local-shard helper ->
+    (b)'s check; the mesh path calling the plain attention on its CUDA
+    shards -> (a)'s launch gate (at :data:`P17_PLANT_RUN`). Returns the
+    plants that were not caught."""
+    from repro_torch.kernels import flash_attention as k7
+    from repro_torch.models import attention as attn
+
+    missed = []
+    global P17_DEGREES
+    degrees, P17_DEGREES = P17_DEGREES, (4,)
+    try:
+        rows = p17_head_shards(local=_kv_one_group_off)
+    finally:
+        P17_DEGREES = degrees
+    try:
+        p17_shard_gate(rows)
+        missed.append("kv one group off")
+    except AssertionError as e:
+        log(f"[17] (c) kv heads one group off in the local-shard helper: (b) fails ({str(e)[:90]}"
+            f"...) ({gpu})")
+    plain_local = functools.partial(attn.local_attention, attend=k7.flash_attention_plain)
+    with _planted(attn, local_attention=plain_local):
+        r = p17_train((1, 1), **P17_PLANT_RUN)
+    try:
+        p17_launch_gate("(c) the mesh run", r["launches"], r["cfg"], P17_PLANT_RUN["steps"])
+        missed.append("plain attention on the shards")
+    except AssertionError as e:
+        log(f"[17] (c) the mesh path's attention through the plain versions on its CUDA shards: "
+            f"(a)'s launch gate fails ({e}) ({gpu})")
+    return missed
+
+
+def phase17_sharding(results: dict) -> None:
+    """Sharding on one card: (a) llama3.2-3b at full width and depth on a
+    (1, 1) mesh bit-equal to the run without one, (b) K7 and K7b on each
+    model rank's head shard, (c) planted faults."""
+    t_phase = time.perf_counter()
+    gpu = gpu_line()
+    t0 = time.perf_counter()
+    a = p17_mesh_vs_plain(gpu)
+    mesh, plain, cfg = a["mesh"], a["plain"], a["mesh"]["cfg"]
+    mm, pm = p17_medians(mesh), p17_medians(plain)
+    log(f"[17] (a) {P17_ARCH} at full width and depth (remat {cfg.remat!r}, B "
+        f"{P17_RUN['batch']} x {P17_RUN['seq']}, {P17_RUN['steps']} AdamW steps, seed 0): "
+        f"TrainRun(mesh_shape=(1, 1)) (one-rank NCCL group; DTensor masters, moments and "
+        f"batch) and TrainRun without a mesh bit-equal: losses {mesh['losses']}, the "
+        f"{a['leaves']} final fp32 parameter, mu and nu leaves; mesh-run launches K7 "
+        f"{mesh['launches']['k7']}, K7b {mesh['launches']['k7b']} (expected "
+        f"{train_launches(cfg, P17_RUN['steps'])}); {time.perf_counter() - t0:.1f} s ({gpu})")
+    log(f"[17] (a) ms a step (median of steps 1-{P17_RUN['steps'] - 1}; parts from CUDA "
+        f"events): mesh forward {mm['forward']:.3f}, backward {mm['backward']:.3f}, optimizer "
+        f"{mm['optimizer']:.3f}, host step {mm['host_step']:.3f}; no mesh forward "
+        f"{pm['forward']:.3f}, backward {pm['backward']:.3f}, optimizer {pm['optimizer']:.3f}, "
+        f"host step {pm['host_step']:.3f}; DTensor's cost a step (mesh - none) "
+        f"{mm['host_step'] - pm['host_step']:.3f} ms of host step, forward "
+        f"{mm['forward'] - pm['forward']:.3f}, backward {mm['backward'] - pm['backward']:.3f}; "
+        f"peak max_memory_allocated mesh {mesh['peak']}, none {plain['peak']} bytes; wall "
+        f"{mesh['wall']:.1f} and {plain['wall']:.1f} s ({gpu})")
+    results["p17"] = {"launches": mesh["launches"]}
+
+    t0 = time.perf_counter()
+    rows = p17_head_shards()
+    p17_shard_gate(rows)
+    b, h, hkv, l, dh = P17_SHAPE
+    for degree, r in rows:
+        log(f"[17] (b) K7 + K7b on each of {degree} model ranks' head shards of ({b}, {h}, {l}, "
+            f"{dh}) bf16 causal, {hkv} kv heads ({r['calls']} shard calls, "
+            f"{'whole kv groups' if r['whole_groups'] else 'kv groups cut: a call a piece'}): "
+            f"outputs and dQ bit-equal to the whole call, dK/dV "
+            f"{'bit-equal' if r['dkv_equal'] else 'within the bound'} (max err/bound "
+            f"{r['dkv_ratio']:.3e}); "
+            f"launches K7 {r['launches'][0]}, K7b {r['launches'][1]} (the shards' and the whole "
+            f"call's)")
+    log(f"[17] (b) {len(rows)} layouts in {time.perf_counter() - t0:.1f} s ({gpu})")
+
+    t0 = time.perf_counter()
+    missed = p17_planted_faults(gpu)
+    log(f"[17] (c) planted faults in {time.perf_counter() - t0:.1f} s ({gpu})")
+    for row in results.get("lm_kernels", []) + results.get("train_kernels", []):
+        key = {"flash_attention": "k7", "flash_attention_bwd": "k7b"}.get(row["name"])
+        if key:
+            row["launches"] += mesh["launches"][key]
+    log(f"[17] phase 17 in {time.perf_counter() - t_phase:.1f} s ({gpu})")
+    if missed:
+        raise AssertionError(f"phase 17: planted faults not caught: {missed}")
+
+
 def phase6_profile(nsteps: int = 10) -> None:
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
@@ -5052,7 +5293,7 @@ def phase6_profile(nsteps: int = 10) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13,14,15,16",
+    ap.add_argument("--phases", default="1,2,3,4,5,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default: all but 6)")
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of an earlier tree whose K1, K3-K5, K7 and K7b phases "
@@ -5098,6 +5339,8 @@ def main() -> int:
         phase15_training(results, args.parent)
     if 16 in phases:
         phase16_remat_dryrun(results)
+    if 17 in phases:
+        phase17_sharding(results)
     log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
     if 1 not in phases:
         log(gpu_line())

@@ -26,7 +26,7 @@ after the last explicit wait() is reported instead of silently dropped.
 Trees are nested dicts, lists, tuples and NamedTuples whose leaves are
 numpy arrays, host scalars or torch tensors (copied to the host at save).
 restore() returns host numpy; :func:`reshard` puts a host tree on one
-device, the identity of its values (one card holds every array whole).
+device, or lays it out on a mesh's shardings as DTensors.
 """
 from __future__ import annotations
 
@@ -369,8 +369,19 @@ class CheckpointManager:
 
 def reshard(tree_host, device=None):
     """Put a host tree on ``device`` as torch tensors (every array copied,
-    None subtrees kept). On one card this is the identity of the values;
-    the JAX package's resharding onto a mesh has nothing to split here."""
+    None subtrees kept), or, given a tree of ``partitioning.NamedSharding``
+    of the same structure (or one sharding for every leaf), lay each array
+    out on its mesh as a DTensor (``launch.shardings.distribute``: a
+    collective every rank runs, rank 0's values broadcast or scattered).
+    On one device this is the identity of the values."""
+    from repro_torch.models.partitioning import NamedSharding, tree_map
+
+    if isinstance(device, (dict, tuple, list, NamedSharding)):
+        from repro_torch.launch import shardings as sh
+
+        host = tree_map(lambda a: None if a is None else a.detach() if isinstance(a, torch.Tensor)
+                        else torch.as_tensor(np.array(a)), tree_host)
+        return sh.distribute(host, device)
     dev = torch.device(device) if device is not None else torch.device("cpu")
 
     def put(tree):

@@ -310,8 +310,19 @@ def _forward(q, k, v, causal: bool, scale: float | None, with_lse: bool):
                        run, (q, k, v))
 
 
+def _no_dtensor(*ts) -> None:
+    """A DTensor's data pointer is not its shard's: the kernels take each
+    rank's plain local tensors (``models.attention.sharded_attention``)."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError("K7 and K7b take plain tensors: call them on a DTensor's local shard "
+                        "(models.attention.sharded_attention)")
+
+
 def _launch(q, k, v, causal: bool, scale: float | None, with_lse: bool):
     """Launch K7 on CUDA tensors: (out, lse or None, the q, k, v it read)."""
+    _no_dtensor(q, k, v)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda, cpu or meta tensors, got {dev}")
@@ -538,6 +549,7 @@ def k7b_cost(q, k, v, causal: bool) -> tuple:
 
 def _bwd_launch(q, k, v, out, lse, dout, causal: bool, scale: float | None) -> tuple:
     """Launch K7b's kernels on CUDA tensors: (dq, dk, dv) f32."""
+    _no_dtensor(q, k, v, out, lse, dout)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda, cpu or meta tensors, got {dev}")

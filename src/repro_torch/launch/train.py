@@ -9,8 +9,21 @@ the family's ``loss_fn`` forward, ``loss.backward()`` and
 the attention's gradient is the hand-written K7b
 (``kernels.flash_attention``); on the CPU its plain version. Parameters
 are fp32 masters; the forward casts each weight to bf16 at use, as JAX
-does. One card: ``mesh_shape`` other than () raises until the sharding
-slice.
+does.
+
+``mesh_shape=(d, m)`` trains on a ("data", "model") mesh
+(``launch.mesh.make_mesh``: one process per device, over the caller's
+process group, or on one device a group of its own), as JAX's ``TrainRun``
+does under ``jax.set_mesh``: the fp32 masters, AdamW's moments and the
+batch are replicated DTensors (the batch's rows over "data" where they
+divide), and the models' sharding hints (``models.partitioning``) lay the
+activations out while the steps run (``partitioning.use_mesh``). Tensors
+the models make inside (masks, positions, tables) count as replicated
+(``implicit_replication``). Each gradient is brought to its parameter's
+placement (:func:`placed_grad`: a sum over the ranks that hold parts of
+it) before AdamW updates each rank's whole copy in place. Rank 0 writes
+the checkpoints; a resume broadcasts them. Every rank returns its losses,
+which are the same on every rank.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b --smoke \\
       --steps 4 --device cpu
@@ -27,9 +40,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.manager import CheckpointManager, reshard
 from repro_torch.core.solver import resolve_device
 from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import shardings as sh
+from repro_torch.models import partitioning as pt
 from repro_torch.models import registry
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import (HeartbeatMonitor, HeartbeatWriter,
@@ -75,6 +91,24 @@ def _seconds(a, b) -> float:
     return a.elapsed_time(b) * 1e-3
 
 
+def placed_grad(p: torch.Tensor) -> torch.Tensor:
+    """The local tensor of DTensor parameter ``p``'s gradient once it is in
+    ``p``'s placements: a gradient that comes back ``Partial`` over an axis
+    (a sum of the ranks' parts) is reduced over it, a ``Shard`` gathered;
+    zeros where ``p`` took no part. AdamW reads it beside ``p``'s local
+    tensor, in its dense layout (a gradient gathered from column shards
+    may come back strided)."""
+    g = p.grad
+    if g is None:
+        return torch.zeros_like(p.to_local())
+    return g.redistribute(p.device_mesh, p.placements).to_local().contiguous()
+
+
+def _local(t):
+    """A DTensor's local tensor (its storage, outside autograd), else ``t``."""
+    return t.to_local() if pt.is_dtensor(t) else t
+
+
 def train_step(mod, cfg, ocfg: adamw.OptConfig, params: dict, opt_state: adamw.OptState,
                batch: dict, mark=lambda part: None):
     """One training step, IN PLACE: ``mod.loss_fn``'s forward (its layer
@@ -82,7 +116,9 @@ def train_step(mod, cfg, ocfg: adamw.OptConfig, params: dict, opt_state: adamw.O
     update. ``mark(part)`` is called at the start and after each part
     ("forward", "backward", "optimizer"). Returns (params, opt_state,
     metrics: the loss, the family's metrics, the lr and grad norm). The
-    dry run counts this function on meta tensors."""
+    dry run counts this function on meta tensors. DTensor parameters (a
+    mesh run, under ``partitioning.use_mesh``) hand AdamW their local
+    tensors and :func:`placed_grad`'s gradients."""
     mark("start")
     for p in adamw.tree_leaves(params):
         p.grad = None
@@ -91,11 +127,39 @@ def train_step(mod, cfg, ocfg: adamw.OptConfig, params: dict, opt_state: adamw.O
         mark("forward")
         loss.backward()
     mark("backward")
-    grads = adamw.tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
-                           params)
-    params, opt_state, om = adamw.apply_updates(ocfg, params, grads, opt_state)
+    leaves = adamw.tree_leaves(params)
+    if leaves and pt.is_dtensor(leaves[0]):
+        with torch.no_grad():
+            grads = adamw.tree_map(placed_grad, params)
+            local = adamw.OptState(opt_state.step, adamw.tree_map(_local, opt_state.mu),
+                                   adamw.tree_map(_local, opt_state.nu))
+            _, st, om = adamw.apply_updates(ocfg, adamw.tree_map(_local, params), grads, local)
+        opt_state = opt_state._replace(step=st.step)
+    else:
+        grads = adamw.tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
+                               params)
+        params, opt_state, om = adamw.apply_updates(ocfg, params, grads, opt_state)
     mark("optimizer")
     return params, opt_state, {"loss": loss.detach(), **metrics, **om}
+
+
+@contextlib.contextmanager
+def mesh_scope(mesh):
+    """The block runs with ``mesh`` as the models' current mesh and plain
+    tensors counted as replicated beside DTensors; nothing without one."""
+    if mesh is None:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with pt.use_mesh(mesh), implicit_replication():
+        yield
+
+
+def global_value(t) -> torch.Tensor:
+    """A DTensor's whole value on every rank (a collective each rank runs),
+    else ``t``."""
+    return t.full_tensor() if pt.is_dtensor(t) else t
 
 
 @dataclasses.dataclass
@@ -130,11 +194,13 @@ class TrainRun:
 
     def build(self):
         """(cfg, mod, dev, params, opt_state, dcfg, step): ``step(params,
-        opt_state, batch)`` runs :func:`train_step` with the modality stubs."""
-        if self.mesh_shape:
-            raise NotImplementedError(
-                f"mesh_shape {self.mesh_shape}: sharding is not ported; one device only")
+        opt_state, batch)`` runs :func:`train_step` with the modality stubs.
+        With ``mesh_shape``, ``self.mesh`` is the mesh the trees live on
+        (else None); :meth:`close` releases a process group it made."""
         dev = resolve_device(self.device)
+        self.mesh = (mesh_lib.make_mesh(self.mesh_shape, ("data", "model"), dev)
+                     if self.mesh_shape else None)
+        mesh = self.mesh
         cfg = self.config()
         mod = registry.get_module(cfg)
         with torch.no_grad():
@@ -143,9 +209,14 @@ class TrainRun:
             else:
                 params = adamw.tree_map(lambda t: t.detach().to(dev, torch.float32, copy=True),
                                         self.params)
+        opt_state = adamw.init(params)
+        if mesh is not None:
+            rep = sh.replicated(mesh)
+            params = sh.distribute(params, rep)
+            opt_state = opt_state._replace(mu=sh.distribute(opt_state.mu, rep),
+                                           nu=sh.distribute(opt_state.nu, rep))
         for p in adamw.tree_leaves(params):
             p.requires_grad_(True)
-        opt_state = adamw.init(params)
         ocfg = adamw.OptConfig(lr=self.lr, warmup_steps=20, total_steps=self.steps)
         dcfg = DataConfig(vocab=cfg.vocab, seq_len=self.seq, global_batch=self.batch,
                           seed=self.seed)
@@ -156,12 +227,23 @@ class TrainRun:
             start and after the forward, the backward and the optimizer;
             read them with ``step_parts`` once the step's loss is read."""
             marks = []
-            params, opt_state, m = train_step(
-                mod, cfg, ocfg, params, opt_state, stubs(batch, cfg),
-                mark=lambda part: marks.append((part, _stamp(dev))))
+            batch = stubs(batch, cfg)
+            if mesh is not None:
+                batch = sh.distribute(batch, sh.batch_shardings(mesh, batch))
+            with mesh_scope(mesh):
+                params, opt_state, m = train_step(
+                    mod, cfg, ocfg, params, opt_state, batch,
+                    mark=lambda part: marks.append((part, _stamp(dev))))
             return params, opt_state, {**m, "marks": marks}
 
         return cfg, mod, dev, params, opt_state, dcfg, step
+
+    def close(self):
+        """Release the process group :meth:`build` made for a one-device
+        mesh (a group the caller made stays)."""
+        if getattr(self, "mesh", None) is not None:
+            self.mesh = None
+            mesh_lib.release()
 
     @staticmethod
     def _with_stubs(batch, cfg):
@@ -190,24 +272,22 @@ class TrainRun:
         """Train ``steps`` steps (from the checkpoint's step when
         ``ckpt_dir`` holds one). Returns the losses, grad norms, wall
         seconds a step and its parts' (forward, backward, optimizer; from
-        CUDA events on the GPU), the final parameters and optimizer state."""
+        CUDA events on the GPU), the final parameters and optimizer state
+        (DTensors on a mesh). A process group the run made for its mesh is
+        destroyed when it returns or raises."""
+        try:
+            return self._run(on_step)
+        finally:
+            self.close()
+
+    def _run(self, on_step) -> dict:
         cfg, mod, dev, params, opt_state, dcfg, step_fn = self.build()
+        mesh = self.mesh
+        writer = mesh is None or torch.distributed.get_rank() == 0
         start_step = 0
-        ckpt = CheckpointManager(self.ckpt_dir) if self.ckpt_dir else None
-        if ckpt is not None:
-            restored, at = ckpt.restore((params, opt_state))
-            if restored is not None:
-                with torch.no_grad():
-                    for t, a in zip(adamw.tree_leaves(params) + adamw.tree_leaves(opt_state.mu)
-                                    + adamw.tree_leaves(opt_state.nu),
-                                    adamw.tree_leaves(restored[0])
-                                    + adamw.tree_leaves(restored[1].mu)
-                                    + adamw.tree_leaves(restored[1].nu)):
-                        t.copy_(torch.from_numpy(np.asarray(a)))
-                opt_state = opt_state._replace(step=torch.tensor(
-                    np.asarray(restored[1].step).astype(np.int32), device=dev))
-                start_step = at
-                print(f"[train] resumed from step {at}")
+        ckpt = CheckpointManager(self.ckpt_dir) if self.ckpt_dir and writer else None
+        if self.ckpt_dir:
+            params, opt_state, start_step = self._resume(ckpt, params, opt_state, dev)
 
         guard = None
         if self.heartbeat_dir:
@@ -217,11 +297,16 @@ class TrainRun:
                 monitor=HeartbeatMonitor(self.heartbeat_dir),
                 expected_hosts=1)
 
+        def save(at: int, blocking: bool):
+            tree = pt.tree_map(global_value, (params, opt_state))  # every rank
+            if ckpt:
+                ckpt.save(at, tree, blocking=blocking)
+
         losses, grad_norms, step_s, parts = [], [], [], []
         for step in range(start_step, self.steps):
             t0 = time.time()
             params, opt_state, m = step_fn(params, opt_state, make_batch(dcfg, step, dev))
-            loss = float(m["loss"])  # the step's one synchronization
+            loss = float(global_value(m["loss"]))  # the step's one synchronization
             parts.append(step_parts(m["marks"]))
             losses.append(loss)
             grad_norms.append(float(m["grad_norm"]))
@@ -231,16 +316,48 @@ class TrainRun:
                 guard.on_step(step, dt)
             if on_step:
                 on_step(step, loss)
-            if step % self.log_every == 0:
+            if step % self.log_every == 0 and writer:
                 print(f"[train] step {step:5d} loss {loss:.4f} ({dt*1e3:.0f} ms)")
-            if ckpt and (step + 1) % self.ckpt_every == 0:
-                ckpt.save(step + 1, (params, opt_state), blocking=not self.ckpt_async)
-        if ckpt:
-            ckpt.save(self.steps, (params, opt_state), blocking=True)
-            ckpt.close()
+            if self.ckpt_dir and (step + 1) % self.ckpt_every == 0:
+                save(step + 1, not self.ckpt_async)
+        if self.ckpt_dir:
+            save(self.steps, True)
+            if ckpt:
+                ckpt.close()
         return {"losses": losses, "grad_norms": grad_norms, "step_s": step_s, "parts": parts,
                 "params": params, "opt_state": opt_state,
                 "final_loss": losses[-1] if losses else None}
+
+    def _resume(self, ckpt, params, opt_state, dev):
+        """(params, opt_state, step) from the newest checkpoint, IN PLACE;
+        the trees and 0 as given when there is none. On a mesh rank 0
+        reads it and ``checkpoint.reshard`` broadcasts its values."""
+        mesh = self.mesh
+        restored, at = ckpt.restore((params, opt_state)) if ckpt else (None, None)
+        if mesh is not None:
+            box = [at]
+            torch.distributed.broadcast_object_list(box, src=0)
+            at = box[0]
+        if at is None:
+            return params, opt_state, 0
+        dst = sum((adamw.tree_leaves(t) for t in (params, opt_state.mu, opt_state.nu)), [])
+        if restored is not None:
+            src = sum((adamw.tree_leaves(t) for t in (restored[0], restored[1].mu,
+                                                      restored[1].nu)), [])
+        else:  # a rank other than 0 holds no checkpoint: its values are placeholders
+            src = [t.detach().to_local() for t in dst]
+        put = dev if mesh is None else sh.replicated(mesh)
+        with torch.no_grad():
+            for t, a in zip(dst, src, strict=True):  # one leaf at a time
+                _local(t).copy_(_local(reshard(a, put)))
+        step = int(np.asarray(restored[1].step)) if restored is not None else 0
+        step_t = torch.tensor(step, dtype=torch.int32, device=dev)
+        if mesh is not None:
+            torch.distributed.broadcast(step_t, src=0)
+        opt_state = opt_state._replace(step=step_t)
+        if restored is not None:
+            print(f"[train] resumed from step {at}")
+        return params, opt_state, at
 
 
 def step_parts(marks: list) -> dict:

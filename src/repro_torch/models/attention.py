@@ -37,6 +37,7 @@ from repro_torch.core import anchored
 from repro_torch.kernels import flash_attention as k7
 from repro_torch.kernels import rcll_kv_attention as k6
 from repro_torch.models import layers
+from repro_torch.models import partitioning as pt
 
 NEG_INF = -1e30
 
@@ -52,12 +53,12 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int, 
     }
 
 
-def _qkv(p, x, n_heads, n_kv, d_head, compute_dtype):
-    b, l, _ = x.shape
+def _qkv(p, x, n_heads, n_kv, compute_dtype):
     xc = x.to(compute_dtype)
-    q = (xc @ p["wq"].to(compute_dtype)).reshape(b, l, n_heads, d_head)
-    k = (xc @ p["wk"].to(compute_dtype)).reshape(b, l, n_kv, d_head)
-    v = (xc @ p["wv"].to(compute_dtype)).reshape(b, l, n_kv, d_head)
+    q = pt.column_parallel(xc, p["wq"].to(compute_dtype), n_heads)
+    k = pt.column_parallel(xc, p["wk"].to(compute_dtype), n_kv)
+    v = pt.column_parallel(xc, p["wv"].to(compute_dtype), n_kv)
+    q = pt.act(q, "batch", None, "model", None)
     return q, k, v
 
 
@@ -97,19 +98,177 @@ def sdpa(q, k, v, *, causal: bool, length: torch.Tensor | None = None):
     return _attend(s, v, b, lq, h, dh)
 
 
+def kernel_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+    """K7 on q (B, Lq, H, Dh) and k/v (B, Lk, Hkv, Dh) -> (B, Lq, H, Dh)
+    f32, a view of K7's (B, H, Lq, Dh) output: one call on the tensors as
+    they are, or, where q is a DTensor (a mesh run), one call on each
+    rank's shard (:func:`sharded_attention`)."""
+    if pt.is_dtensor(q):
+        return sharded_attention(q, k, v, causal=causal)
+    return k7.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=causal).transpose(1, 2)
+
+
+def head_range(n_heads: int, degree: int, rank: int) -> tuple[int, int]:
+    """The query heads [h0, h1) that model rank ``rank`` of ``degree``
+    holds when the heads are sharded over "model": ``torch.chunk``'s
+    sizes, as a DTensor's ``Shard`` splits (ceil(H / degree) a rank, the
+    last ranks fewer or none)."""
+    size = -(-n_heads // degree)
+    return min(rank * size, n_heads), min((rank + 1) * size, n_heads)
+
+
+def head_pieces(h0: int, h1: int, rep: int) -> list:
+    """[h0, h1) cut where it cuts a kv group (``rep`` query heads a kv
+    head): a piece inside one group, then the whole groups, then a piece
+    inside one group; each piece is a GQA call of its own."""
+    pieces, a = [], h0
+    if h0 % rep and h0 < h1:
+        a = min(-(-h0 // rep) * rep, h1)
+        pieces.append((h0, a))
+    last = h1 // rep * rep
+    if a < last:
+        pieces.append((a, last))
+        a = last
+    if a < h1:
+        pieces.append((a, h1))
+    return pieces
+
+
+def local_attention(q, k, v, h0: int, h1: int, n_heads: int, *, causal: bool,
+                    attend=k7.flash_attention) -> torch.Tensor:
+    """One model rank's attention over its query heads [h0, h1) of
+    ``n_heads``: q (B, h1 - h0, Lq, Dh) those heads, k/v (B, Hkv, Lk, Dh)
+    every kv head (JAX replicates K and V over "model"); ``attend`` is K7's
+    wrapper (or its plain path). Returns (B, h1 - h0, Lq, Dh) f32.
+
+    K7 maps its local head h to kv head h // rep' (rep' its own ratio of
+    heads), so the kv heads a call gets must start at its first head's
+    group. Where the rank holds whole groups (h0 and h1 multiples of rep =
+    H / Hkv) that is one call on the kv heads [h0 / rep, h1 / rep), rep' =
+    rep. A layout that cuts a group (H 24, rep 3 over 16 ranks: two heads
+    a rank) takes one call per :func:`head_pieces` piece, each on its own
+    groups' kv heads (a piece inside a group at rep' = its head count).
+    Either way each call's heads are the unsharded call's, so outputs and
+    dQ are bit-equal to it, and K7b sums each kv head's gradient over the
+    rank's heads of its group in fp32: with whole groups dK and dV are the
+    unsharded call's too; a cut group's gradient is the sum, over the
+    ranks that share it, of each rank's part (rounded to K's dtype once).
+    A rank past the last head (an empty range) attends nothing; its output
+    stays on the graph, so every rank runs the same collectives backward."""
+    if h1 == h0:
+        return q.float() + (k[:, :0].sum() + v[:, :0].sum())
+    rep = n_heads // k.shape[1]
+    outs = []
+    for a, b in head_pieces(h0, h1, rep):
+        g0, g1 = a // rep, -(-b // rep)
+        outs.append(attend(q[:, a - h0:b - h0], k[:, g0:g1], v[:, g0:g1], causal=causal))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+
+
+def check_head_shards(q, k, v, dout, degree: int, *, causal: bool = True, local=None) -> dict:
+    """Each of ``degree`` model ranks' :func:`local_attention` (or
+    ``local``, same signature) on its head shard of q (B, H, Lq, Dh) over
+    k/v (B, Hkv, Lk, Dh), forward and backward (dO ``dout``, (B, H, Lq,
+    Dh) f32), concatenated over the ranks (dK, dV summed, their
+    ``Partial``) and held against one whole :func:`kernels.flash_attention`
+    call: K7 and K7b on CUDA tensors, their plain versions on CPU tensors.
+    Outputs and dQ must be bit-equal; dK and dV bit-equal where every rank
+    holds whole kv groups, else within K7b's ``rounding_bound_bwd`` plus one
+    rounding to K's dtype of each rank's part and of the whole call's
+    gradient (2^-8 of each for bf16, 2^-24 for fp32, relative) and the fp32
+    sum over the ranks here. Returns {"calls": the shards' kernel calls
+    (:func:`head_pieces` of the ranks that attend), "whole_groups",
+    "out_equal", "dq_equal", "dkv_equal", "dkv_ratio": max dK/dV error
+    over that bound, "ok"}. The shard calls come first, so a launch
+    counter read before the whole call counts theirs."""
+    local = local or local_attention
+    h = q.shape[1]
+    rep = h // k.shape[1]
+    outs, dqs, calls, whole = [], [], 0, True
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    mag = [torch.zeros_like(dk), torch.zeros_like(dv)]
+    for r in range(degree):
+        h0, h1 = head_range(h, degree, r)
+        ql = q[:, h0:h1].detach().requires_grad_(True)
+        kl, vl = (t.detach().requires_grad_(True) for t in (k, v))
+        out = local(ql, kl, vl, h0, h1, h, causal=causal)
+        out.backward(dout[:, h0:h1])
+        outs.append(out.detach())
+        dqs.append(ql.grad.float())
+        dk += kl.grad.float()
+        dv += vl.grad.float()
+        mag[0] += kl.grad.float().abs()
+        mag[1] += vl.grad.float().abs()
+        calls += len(head_pieces(h0, h1, rep))
+        whole = whole and h0 % rep == 0 and h1 % rep == 0
+    qw, kw, vw = (t.detach().requires_grad_(True) for t in (q, k, v))
+    ow = k7.flash_attention(qw, kw, vw, causal=causal)
+    ow.backward(dout)
+    got = (torch.cat(outs, 1), torch.cat(dqs, 1), dk, dv)
+    want = (ow.detach(), qw.grad.float(), kw.grad.float(), vw.grad.float())
+    res = {"calls": calls, "whole_groups": whole,
+           "out_equal": torch.equal(got[0], want[0]), "dq_equal": torch.equal(got[1], want[1]),
+           "dkv_equal": torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])}
+    lse = k7.lse_ref(q, k, causal=causal)
+    bnd = k7.rounding_bound_bwd(q, k, v, want[0], lse, dout, causal=causal)[1:]
+    unit = 2.0**-8 if k.dtype == torch.bfloat16 else 2.0**-24
+    ratio = 0.0
+    for g, w, b, m in zip(got[2:], want[2:], bnd, mag):
+        lim = b + unit / (1 - unit) * (m + w.abs()) + degree * 2.0**-24 * m
+        ratio = max(ratio, float(((g - w).abs() / lim).max()) if g.numel() else 0.0)
+    res["dkv_ratio"] = ratio
+    res["ok"] = (res["out_equal"] and res["dq_equal"]
+                 and (res["dkv_equal"] if whole else ratio <= 1.0))
+    return res
+
+
+def sharded_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+    """K7 (and K7b backward) on DTensors q (B, Lq, H, Dh), k/v (B, Lk, Hkv,
+    Dh) of the current mesh: q laid out batch over the DP axes and heads
+    over "model" (JAX's ``act(q, "batch", None, "model", None)``), k and v
+    batch over DP and replicated over "model" (the layout JAX's
+    ``attn_kv_hoist`` asks for, which attention needs either way), then
+    :func:`local_attention` on each rank's local tensors, so a kernel only
+    ever sees a rank's plain shard.
+    The output has q's placements. Backward, dQ keeps q's placements and dK,
+    dV are partial sums over "model" (each rank's heads add to theirs)."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    mesh = q.device_mesh
+    names = pt.axis_names(mesh)
+    q = pt.act(q, "batch", None, "model", None)
+    k = pt.act(k, "batch", None, None, None)
+    v = pt.act(v, "batch", None, None, None)
+    kv_grads = [Partial() if n == "model" else p for n, p in zip(names, k.placements)]
+    ql = q.to_local()
+    kl, vl = (t.to_local(grad_placements=kv_grads) for t in (k, v))
+    n_heads = q.shape[2]
+    deg, rank = ((mesh.size(names.index("model")), mesh.get_local_rank("model"))
+                 if "model" in names else (1, 0))
+    h0, h1 = head_range(n_heads, deg, rank)
+    if ql.shape[2] != h1 - h0:
+        raise ValueError(f"rank {rank} of {deg} holds {ql.shape[2]} heads, not [{h0}, {h1})")
+    out = local_attention(ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2), h0, h1,
+                          n_heads, causal=causal).transpose(1, 2)
+    b, lq, h, dh = q.shape
+    return DTensor.from_local(out, mesh, q.placements, shape=torch.Size((b, lq, h, dh)),
+                              stride=(h * lq * dh, dh, lq * dh, 1))
+
+
 def attention_full(p, x, positions, *, n_heads, n_kv, d_head, rope_theta=10000.0,
                    causal=True, compute_dtype=layers.DEFAULT_COMPUTE, use_rope=True):
     """Prefill self-attention through K7. Returns (out, (k, v) for caching)."""
     b, l, _ = x.shape
-    q, k, v = _qkv(p, x, n_heads, n_kv, d_head, compute_dtype)
+    q, k, v = _qkv(p, x, n_heads, n_kv, compute_dtype)
     if use_rope:
         q = layers.apply_rope(q, positions, rope_theta)
         k = layers.apply_rope(k, positions, rope_theta)
     # (B, L, heads, Dh) -> (B, heads, L, Dh) views: K7 takes the strides
-    out = k7.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                             causal=causal)
-    out = out.transpose(1, 2).to(compute_dtype, memory_format=torch.contiguous_format)
-    return out.reshape(b, l, n_heads * d_head) @ p["wo"].to(compute_dtype), (k, v)
+    out = kernel_attention(q, k, v, causal=causal)
+    out = out.to(compute_dtype, memory_format=torch.contiguous_format)
+    return pt.row_parallel(out.reshape(b, l, n_heads * d_head), p["wo"].to(compute_dtype)), (k, v)
 
 
 def cross_attention(p, x, kv_src, *, n_heads, n_kv, d_head,
@@ -118,19 +277,17 @@ def cross_attention(p, x, kv_src, *, n_heads, n_kv, d_head,
     prefill; the decode step's one query takes plain ``sdpa`` with
     ``use_kernel=False``, as dense decode does."""
     b, l, _ = x.shape
-    s = kv_src.shape[1]
     xc = x.to(compute_dtype)
     sc = kv_src.to(compute_dtype)
-    q = (xc @ p["wq"].to(compute_dtype)).reshape(b, l, n_heads, d_head)
-    k = (sc @ p["wk"].to(compute_dtype)).reshape(b, s, n_kv, d_head)
-    v = (sc @ p["wv"].to(compute_dtype)).reshape(b, s, n_kv, d_head)
+    q = pt.column_parallel(xc, p["wq"].to(compute_dtype), n_heads)
+    k = pt.column_parallel(sc, p["wk"].to(compute_dtype), n_kv)
+    v = pt.column_parallel(sc, p["wv"].to(compute_dtype), n_kv)
     if use_kernel:
-        out = k7.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                 causal=False).transpose(1, 2)
+        out = kernel_attention(q, k, v, causal=False)
     else:
         out = sdpa(q, k, v, causal=False)
     out = out.to(compute_dtype, memory_format=torch.contiguous_format)
-    return out.reshape(b, l, n_heads * d_head) @ p["wo"].to(compute_dtype)
+    return pt.row_parallel(out.reshape(b, l, n_heads * d_head), p["wo"].to(compute_dtype))
 
 
 # --------------------------------------------------------------------------
@@ -202,7 +359,7 @@ def decode_attention_dense(p, x, cache: DenseKVCache, *, n_heads, n_kv, d_head,
                            use_rope=True):
     """One-token decode with a dense cache. x: (B, 1, d_model)."""
     b = x.shape[0]
-    q, k_new, v_new = _qkv(p, x, n_heads, n_kv, d_head, compute_dtype)
+    q, k_new, v_new = _qkv(p, x, n_heads, n_kv, compute_dtype)
     pos = cache.length[:, None]
     if use_rope:
         q = layers.apply_rope(q, pos, rope_theta)
@@ -305,7 +462,7 @@ def decode_attention_anchored(p, x, cache: AnchoredKVCache, *, n_heads, n_kv, d_
     """One-token decode over the RCLL-KV cache: K6 over the closed blocks,
     plain torch over the open tail, merged by (m, l)."""
     b = x.shape[0]
-    q, k_new, v_new = _qkv(p, x, n_heads, n_kv, d_head, compute_dtype)
+    q, k_new, v_new = _qkv(p, x, n_heads, n_kv, compute_dtype)
     pos = cache.length[:, None]
     if use_rope:
         q = layers.apply_rope(q, pos, rope_theta)

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
+from repro_torch.models import partitioning as pt
 from repro_torch.models import transformer as tf
 
 
@@ -72,26 +73,29 @@ def encode(params, frames, cfg):
         # the frames need no gradient, so the reentrant form would see none
         h = tf.run_body(remat, _enc_body, cfg, tf.layer_params(params, i, "enc_layers"), h,
                         positions, reentrant=False)
-    return layers.layer_norm(params["enc_norm"], h)
+    # whole along the frames once: every decoder layer's cross-attention reads it
+    return pt.seq_whole(layers.layer_norm(params["enc_norm"], h))
 
 
 def _enc_body(cfg, p_l, h, positions):
     """One encoder layer (JAX's encoder ``body``, checkpointed under ``remat``)."""
+    h = pt.seq_whole(h)
     out, _ = attn_lib.attention_full(p_l["attn"], layers.layer_norm(p_l["ln1"], h), positions,
                                      causal=False, use_rope=False, **_heads(cfg))
     h = h + out
-    return h + layers.gelu_mlp(p_l["mlp"], layers.layer_norm(p_l["ln2"], h))
+    return pt.act_seq(h + layers.gelu_mlp(p_l["mlp"], layers.layer_norm(p_l["ln2"], h)))
 
 
 def _dec_body(cfg, p_l, h, enc_out, positions):
     """One decoder layer and its (k, v) (JAX's decoder ``body``,
     checkpointed under ``remat``)."""
+    h = pt.seq_whole(h)
     out, kv = attn_lib.attention_full(p_l["attn"], layers.layer_norm(p_l["ln1"], h), positions,
                                       use_rope=False, **_heads(cfg))
     h = h + out
     h = h + attn_lib.cross_attention(p_l["xattn"], layers.layer_norm(p_l["ln_x"], h), enc_out,
                                      **_heads(cfg))
-    return h + layers.gelu_mlp(p_l["mlp"], layers.layer_norm(p_l["ln2"], h)), kv
+    return pt.act_seq(h + layers.gelu_mlp(p_l["mlp"], layers.layer_norm(p_l["ln2"], h))), kv
 
 
 def decoder_forward(params, tokens, enc_out, cfg, *, return_cache=False):

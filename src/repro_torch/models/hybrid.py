@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, mamba2
+from repro_torch.models import partitioning as pt
 from repro_torch.models import transformer as tf
 
 
@@ -97,9 +98,10 @@ def _site_after(cfg, i: int) -> int | None:
 def _mamba_body(cfg, p_l, h):
     """One mamba layer with its residual (JAX's ``mamba_body``, the part
     ``remat`` checkpoints; the shared block is not)."""
+    h = pt.seq_whole(h)
     out, cache = mamba2.mamba2_forward(p_l["mixer"], layers.rms_norm(p_l["ln1"], h),
                                        cfg.ssm_dims, chunk=cfg.ssd_chunk)
-    return h + out, cache
+    return pt.act_seq(h + out), cache
 
 
 def forward(params, tokens, cfg, *, patch_embeds=None, return_cache=False):
@@ -116,6 +118,7 @@ def forward(params, tokens, cfg, *, patch_embeds=None, return_cache=False):
         if return_cache:
             m_caches.append(cache)
         if _site_after(cfg, i) is not None:
+            h = pt.seq_whole(h)  # the shared block and its residual read whole rows
             res, kv = _shared_forward(params["shared_attn"], h, emb0, positions, cfg)
             h = h + res
             if return_cache:

@@ -6,7 +6,8 @@ apply functions. Parameters are fp32 masters; each apply function casts
 a weight to the compute dtype at use (``Tensor.to`` is free when the
 caller passes the one bf16 copy that ``transformer.compute_weights``
 makes). Normalization and softmax accumulate in fp32. JAX's sharding
-constraints (``pt.act*``) are the identity on one device and are dropped.
+constraints (``pt.act*``, ``models.partitioning``) stand where JAX has
+them: the identity without a mesh, a DTensor redistribution under one.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch.models import partitioning as pt
 
 DEFAULT_COMPUTE = torch.bfloat16
 
@@ -127,12 +130,18 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
     }
 
 
+def _act_hidden(h: torch.Tensor) -> torch.Tensor:
+    """Constrain an MLP hidden activation of any rank: leading axis on
+    the DP axes, trailing (ffn) axis on "model"."""
+    return pt.act(h, "batch", *([None] * (h.dim() - 2)), "model")
+
+
 def swiglu(p: dict, x: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch.Tensor:
     xc = x.to(compute_dtype)
-    g = xc @ p["w_gate"].to(compute_dtype)
-    u = xc @ p["w_up"].to(compute_dtype)
+    g = pt.column_parallel(xc, p["w_gate"].to(compute_dtype))
+    u = pt.column_parallel(xc, p["w_up"].to(compute_dtype))
     h = torch.nn.functional.silu(g.float()).to(compute_dtype) * u
-    return h @ p["w_down"].to(compute_dtype)
+    return pt.row_parallel(_act_hidden(h), p["w_down"].to(compute_dtype))
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
@@ -141,10 +150,10 @@ def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
 
 def gelu_mlp(p: dict, x: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch.Tensor:
     xc = x.to(compute_dtype)
-    h = xc @ p["w_up"].to(compute_dtype)
+    h = pt.column_parallel(xc, p["w_up"].to(compute_dtype))
     # jax.nn.gelu's default is the tanh approximation
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(compute_dtype)
-    return h @ p["w_down"].to(compute_dtype)
+    return pt.row_parallel(_act_hidden(h), p["w_down"].to(compute_dtype))
 
 
 # --------------------------------------------------------------------------
@@ -159,24 +168,41 @@ def init_embed(gen: torch.Generator, vocab: int, d_model: int, tied: bool = True
 
 
 def embed(p: dict, tokens: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch.Tensor:
-    # gather, then cast: the same values as JAX's cast-then-take
-    return p["embed"][tokens.long()].to(compute_dtype)
+    """Gather, then cast: the same values as JAX's cast-then-take. Under a
+    mesh each rank gathers its own rows (batch over DP) from its whole
+    copy of the table (``partitioning.on_local``; DTensor in torch 2.11
+    cannot lay out the backward's ``index_put``), and the table's gradient
+    is the sum over DP of the ranks' scatter-adds."""
+    w = p["embed"]
+    rows = ("batch",) + (None,) * (tokens.dim() - 1)
+    out = pt.on_local(lambda w, t: w[t.long()].to(compute_dtype), (w, tokens), ((), rows),
+                      (rows + (None,),), (tuple(tokens.shape) + (w.shape[-1],),),
+                      partial={0: ("batch",)})
+    return pt.act(out, "batch", None, None)
 
 
 def logits(p: dict, x: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch.Tensor:
     w = p.get("unembed", p["embed"]).to(compute_dtype)
-    return (x.to(compute_dtype) @ w.T).float()
+    xc = pt.seq_whole(x).to(compute_dtype)
+    lg = pt.column_parallel(xc, w.T) if pt.vocab_split(w.shape[0]) else xc @ w.T
+    return pt.act_vocab(lg).float()
 
 
 def cross_entropy(lg: torch.Tensor, labels: torch.Tensor, z_loss: float = 1e-4) -> torch.Tensor:
     """Mean token cross-entropy with optional z-loss, fp32 accumulation.
 
     JAX picks the label's logit by an iota-compare sum over the vocab (a
-    sum of zeros and one term: the same value as this gather), so that
-    vocab-sharded logits need no all-gather; one card holds them whole."""
+    sum of zeros and one term: the same value as a gather), so that
+    vocab-sharded logits need no all-gather. Plain tensors take the
+    gather; DTensor logits (a mesh run, the vocab maybe on "model") take
+    JAX's sum."""
     lg = lg.float()
     lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    if pt.is_dtensor(lg):
+        vocab = torch.arange(lg.shape[-1], device=lg.device)
+        ll = torch.where(vocab == labels.long()[..., None], lg, 0.0).sum(dim=-1)
+    else:
+        ll = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse**2

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.models import partitioning as pt
 
 
 class SSMDims(NamedTuple):
@@ -154,35 +155,58 @@ class Mamba2Cache(NamedTuple):
                                  dtype=torch.float32, device=device))
 
 
-def mamba2_forward(p, x, dims: SSMDims, *, chunk=128, compute_dtype=layers.DEFAULT_COMPUTE,
-                   ssd_compute: str = "fp32"):
-    """Full-sequence Mamba2 block. x: (B, L, d_model).
-
-    Returns (out, Mamba2Cache): the cache is decode-ready (the final SSM
-    state and the last d_conv - 1 raw conv inputs)."""
-    bsz, length, _ = x.shape
-    proj = x.to(compute_dtype) @ p["in_proj"].to(compute_dtype)
+def _mixer(proj, conv_w, conv_bias, dt_bias, a_log, d_skip, dims: SSMDims, chunk: int,
+           ssd_compute: str):
+    """The causal depthwise conv, the chunked SSD and the gate on the input
+    projection ``proj`` (B, L, ...). Returns (y (B, L, d_inner) f32, the
+    final state, the conv tail)."""
+    bsz, length, _ = proj.shape
     z, xbc, dt = _split_proj(proj, dims)
     # causal depthwise conv over xbc
-    w = p["conv_w"].float()  # (d_conv, conv_dim)
+    w = conv_w.float()  # (d_conv, conv_dim)
     xbc_f = xbc.float()
     conv_tail = xbc_f[:, length - (dims.d_conv - 1):, :]  # decode conv history
     padded = F.pad(xbc_f, (0, 0, dims.d_conv - 1, 0))
     conv = padded[:, 0:length] * w[0][None, None, :]
     for i in range(1, dims.d_conv):
         conv = conv + padded[:, i:i + length] * w[i][None, None, :]
-    xs, Bc, Cc = _split_xbc(F.silu(conv + p["conv_bias"]), dims)
+    xs, Bc, Cc = _split_xbc(F.silu(conv + conv_bias), dims)
     xh = xs.reshape(bsz, length, dims.n_heads, dims.head_dim)
     Bm = Bc.reshape(bsz, length, dims.n_groups, dims.d_state)
     Cm = Cc.reshape(bsz, length, dims.n_groups, dims.d_state)
-    dt_ = F.softplus(dt.float() + p["dt_bias"])
-    a = -torch.exp(p["a_log"].float())
+    dt_ = F.softplus(dt.float() + dt_bias)
+    a = -torch.exp(a_log.float())
     y, state = ssd_chunked(xh.float(), dt_, a, Bm, Cm, dims, chunk,
                            einsum_dtype=torch.bfloat16 if ssd_compute == "bf16" else torch.float32)
-    y = y + xh.float() * p["d_skip"][None, None, :, None]
+    y = y + xh.float() * d_skip[None, None, :, None]
     y = y.reshape(bsz, length, dims.d_inner) * F.silu(z.float())  # gated
+    return y, state, conv_tail
+
+
+def mamba2_forward(p, x, dims: SSMDims, *, chunk=128, compute_dtype=layers.DEFAULT_COMPUTE,
+                   ssd_compute: str = "fp32"):
+    """Full-sequence Mamba2 block. x: (B, L, d_model).
+
+    Returns (out, Mamba2Cache): the cache is decode-ready (the final SSM
+    state and the last d_conv - 1 raw conv inputs). Under a mesh the
+    projection is split over "model" as JAX's hint lays it out (its last
+    axis there), then gathered: each rank runs the conv and the SSD on its
+    own rows, whole (``partitioning.on_local``; their weights' gradients
+    sum over DP), so every model rank repeats them."""
+    bsz, length, _ = x.shape
+    proj = pt.act(pt.column_parallel(x.to(compute_dtype), p["in_proj"].to(compute_dtype)),
+                  "batch", None, "model")
+    rows = ("batch", None, None)
+    y, state, conv_tail = pt.on_local(
+        lambda *a: _mixer(*a, dims=dims, chunk=chunk, ssd_compute=ssd_compute),
+        (proj, p["conv_w"], p["conv_bias"], p["dt_bias"], p["a_log"], p["d_skip"]),
+        (rows, (), (), (), (), ()), (rows, ("batch", None, None, None), rows),
+        ((bsz, length, dims.d_inner), (bsz, dims.n_heads, dims.head_dim, dims.d_state),
+         (bsz, dims.d_conv - 1, conv_dim(dims))),
+        partial={i: ("batch",) for i in range(1, 6)})
     y = layers.rms_norm(p["out_norm"], y.to(compute_dtype))
-    return y @ p["out_proj"].to(compute_dtype), Mamba2Cache(state=state, conv_buf=conv_tail)
+    out = pt.row_parallel(y, p["out_proj"].to(compute_dtype))
+    return out, Mamba2Cache(state=state, conv_buf=conv_tail)
 
 
 def mamba2_decode(p, x, cache: Mamba2Cache, dims: SSMDims,

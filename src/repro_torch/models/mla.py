@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models import layers
+from repro_torch.models import partitioning as pt
 
 
 def init_mla(gen: torch.Generator, d_model: int, n_heads: int, *, q_lora: int, kv_lora: int,
@@ -61,11 +62,9 @@ class MLACache(NamedTuple):
 
 
 def _project_q(p, x, dims: MLADims, compute_dtype):
-    b, l, _ = x.shape
     cq = x.to(compute_dtype) @ p["wq_a"].to(compute_dtype)
     cq = layers.rms_norm(p["q_norm"], cq)
-    q = (cq @ p["wq_b"].to(compute_dtype)).reshape(b, l, dims.n_heads,
-                                                   dims.qk_nope + dims.qk_rope)
+    q = pt.column_parallel(cq, p["wq_b"].to(compute_dtype), dims.n_heads)
     return q[..., :dims.qk_nope], q[..., dims.qk_nope:]
 
 
@@ -75,34 +74,53 @@ def _project_kv_latent(p, x, dims: MLADims, compute_dtype):
     return layers.rms_norm(p["kv_norm"], c_kv), k_rope
 
 
+def _attend(q_nope, q_rope, k_nope, v, k_rope, scale: float):
+    """Query-blocked (memory-linear) causal attention, JAX's tiling: the
+    scores never materialize beyond (B, H, chunk, L); the math is exact
+    per row. q_nope, q_rope, k_nope, v (B, L, H, *), k_rope (B, L, dr);
+    returns (B, L, H, dv) f32."""
+    l = q_nope.shape[1]
+    k_nope, v, kr = k_nope.float(), v.float(), k_rope.float()
+    chunk = 256 if (l % 256 == 0 and l > 256) else l
+    cols = torch.arange(l, device=q_nope.device)[None, :]
+    outs = []
+    for i in range(l // chunk):
+        rows = slice(i * chunk, (i + 1) * chunk)
+        s = (torch.einsum("blhd,bmhd->bhlm", q_nope[:, rows].float(), k_nope)
+             + torch.einsum("blhd,bmd->bhlm", q_rope[:, rows].float(), kr)) * scale
+        causal = (i * chunk + torch.arange(chunk, device=q_nope.device))[:, None] >= cols
+        s = torch.where(causal, s, -1e30)
+        outs.append(torch.einsum("bhlm,bmhd->blhd", torch.softmax(s, dim=-1), v))
+    return torch.cat(outs, dim=1)
+
+
 def mla_full(p, x, positions, dims: MLADims, *, rope_theta=10000.0,
              compute_dtype=layers.DEFAULT_COMPUTE):
     """Prefill MLA (naive materialized form). Returns (out, cache tensors
-    (c_kv, k_rope))."""
+    (c_kv, k_rope)).
+
+    Under a mesh the heads of q (JAX's hint) and of k and v go on "model"
+    and the batch on DP (``wq_b`` and ``wkv_b`` split over "model",
+    ``partitioning.column_parallel``), k_rope whole over "model", and each
+    rank attends over its own heads and rows (``partitioning.on_local``:
+    the unsharded math a head at a time). The low-rank projections
+    ``wq_a`` and ``wkv_a`` run whole on every model rank: their norms read
+    the whole latent."""
     b, l, _ = x.shape
     h, dn, dr, dv = dims.n_heads, dims.qk_nope, dims.qk_rope, dims.v_head
     q_nope, q_rope = _project_q(p, x, dims, compute_dtype)
     q_rope = layers.apply_rope(q_rope, positions, rope_theta)
     c_kv, k_rope = _project_kv_latent(p, x, dims, compute_dtype)
     k_rope = layers.apply_rope(k_rope[..., None, :], positions, rope_theta)[..., 0, :]
-    kv = (c_kv @ p["wkv_b"].to(compute_dtype)).reshape(b, l, h, dn + dv)
-    k_nope, v = kv[..., :dn].float(), kv[..., dn:].float()
-    kr = k_rope.float()
-    scale = 1.0 / math.sqrt(dn + dr)
-    # query-blocked (memory-linear) attention, JAX's tiling: the scores
-    # never materialize beyond (B, H, chunk, L); the math is exact per row
-    chunk = 256 if (l % 256 == 0 and l > 256) else l
-    cols = torch.arange(l, device=x.device)[None, :]
-    outs = []
-    for i in range(l // chunk):
-        rows = slice(i * chunk, (i + 1) * chunk)
-        s = (torch.einsum("blhd,bmhd->bhlm", q_nope[:, rows].float(), k_nope)
-             + torch.einsum("blhd,bmd->bhlm", q_rope[:, rows].float(), kr)) * scale
-        causal = (i * chunk + torch.arange(chunk, device=x.device))[:, None] >= cols
-        s = torch.where(causal, s, -1e30)
-        outs.append(torch.einsum("bhlm,bmhd->blhd", torch.softmax(s, dim=-1), v))
-    out = torch.cat(outs, dim=1).to(compute_dtype).reshape(b, l, h * dv)
-    return out @ p["wo"].to(compute_dtype), (c_kv, k_rope)
+    kv = pt.column_parallel(c_kv, p["wkv_b"].to(compute_dtype), h)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    heads = ("batch", None, "model", None)
+    q_nope = pt.act(q_nope, *heads)
+    out = pt.on_local(lambda *a: _attend(*a, scale=1.0 / math.sqrt(dn + dr)),
+                      (q_nope, q_rope, k_nope, v, k_rope), (heads,) * 4 + (("batch", None, None),),
+                      (heads,), ((b, l, h, dv),), partial={4: ("model",)})
+    out = out.to(compute_dtype).reshape(b, l, h * dv)
+    return pt.row_parallel(out, p["wo"].to(compute_dtype)), (c_kv, k_rope)
 
 
 def mla_decode(p, x, cache: MLACache, dims: MLADims, *, rope_theta=10000.0,

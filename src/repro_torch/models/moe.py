@@ -15,6 +15,14 @@ outputs in bf16 in one fixed order, the order of JAX's scatter-add (by
 expert id), with gathers and no atomics, so two runs on the card are
 bit-equal. The expert products are plain batched products, as in JAX,
 where no Pallas kernel computes them.
+
+Under a mesh (``partitioning.use_mesh``) the (E, capacity, d) buffer and
+the experts' hidden take JAX's hints: experts on "model", and with
+``cap_shard`` the capacity on the DP axes. Routing, dispatch and combine
+are global (the sort and the capacity drops run over every token of the
+batch), so each rank runs them on whole copies of their inputs
+(``partitioning.on_replicas``): the routers and drops are those of the
+run without a mesh, given the same router inputs.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import math
 import torch
 
 from repro_torch.models import layers
+from repro_torch.models import partitioning as pt
 
 
 def init_moe(gen: torch.Generator, d_model: int, d_expert: int, n_routed: int, n_shared: int,
@@ -85,13 +94,24 @@ def capacity(n_tokens: int, top_k_: int, n_routed: int, capacity_factor: float) 
 
 
 def dispatch_sort(x: torch.Tensor, expert_idx: torch.Tensor, weights: torch.Tensor,
-                  n_experts: int, capacity_: int):
+                  n_experts: int, capacity_: int, cap_shard: bool = False):
     """Sort-based dispatch. x: (T, d); expert_idx/weights: (T, k).
 
     Returns (buf (E, cap, d), combine-info (order, slot, keep, token_of,
     drop_frac)) where combine-info lets :func:`combine_sort` gather the
-    expert outputs back per (token, slot).
+    expert outputs back per (token, slot). Under a mesh the dispatch runs
+    on whole copies (:func:`partitioning.on_replicas`) and ``buf`` is laid
+    out experts on "model" (and, with ``cap_shard``, capacity on DP).
     """
+    buf, info = pt.on_replicas(_dispatch_sort, x, expert_idx, weights, n_experts, capacity_)
+    # sharding capacity over the data axis keeps the dispatch scatter
+    # distributed (E on "model" alone gathers the buffer to every shard)
+    buf = (pt.act(buf, "model", "batch", None) if cap_shard
+           else pt.act(buf, "model", None, None))
+    return buf, info
+
+
+def _dispatch_sort(x, expert_idx, weights, n_experts: int, capacity_: int):
     n_tok, d = x.shape
     k = expert_idx.shape[1]
     flat_e = expert_idx.reshape(-1).long()  # (T*k,)
@@ -121,7 +141,12 @@ def combine_positions(order: torch.Tensor, n_tok: int, k: int) -> torch.Tensor:
 def combine_sort(y_buf: torch.Tensor, info, weights: torch.Tensor, n_tok: int) -> torch.Tensor:
     """Gather expert outputs back and weight-combine. y_buf: (E, cap, d).
     Each token's k terms are added in y_buf's dtype, one after another in
-    :func:`combine_positions`' order, onto zeros: no atomics, one order."""
+    :func:`combine_positions`' order, onto zeros: no atomics, one order.
+    Under a mesh, on whole copies (:func:`partitioning.on_replicas`)."""
+    return pt.on_replicas(_combine_sort, y_buf, info, weights, n_tok)
+
+
+def _combine_sort(y_buf, info, weights, n_tok: int):
     order, slot, keep, _, _ = info
     n_exp, cap, d = y_buf.shape
     k = order.numel() // n_tok
@@ -136,27 +161,31 @@ def combine_sort(y_buf: torch.Tensor, info, weights: torch.Tensor, n_tok: int) -
     return out
 
 
-def expert_ffn(p_experts: dict, buf: torch.Tensor,
-               compute_dtype=layers.DEFAULT_COMPUTE) -> torch.Tensor:
+def expert_ffn(p_experts: dict, buf: torch.Tensor, compute_dtype=layers.DEFAULT_COMPUTE,
+               cap_shard: bool = False) -> torch.Tensor:
     """Batched SwiGLU over the (E, cap, d) buffer."""
     xc = buf.to(compute_dtype)
     g = torch.bmm(xc, p_experts["w_gate"].to(compute_dtype))
     u = torch.bmm(xc, p_experts["w_up"].to(compute_dtype))
     h = torch.nn.functional.silu(g.float()).to(compute_dtype) * u
+    h = (pt.act(h, "model", "batch", None) if cap_shard
+         else pt.act(h, "model", None, None))
     return torch.bmm(h, p_experts["w_down"].to(compute_dtype))
 
 
 def moe_block(p: dict, x: torch.Tensor, *, top_k: int, n_routed: int,
-              capacity_factor: float = 1.25, compute_dtype=layers.DEFAULT_COMPUTE):
+              capacity_factor: float = 1.25, compute_dtype=layers.DEFAULT_COMPUTE,
+              cap_shard: bool = False):
     """Full MoE block on (B, L, d). Returns (out, metrics dict with the
     0-d tensors ``aux_loss`` and ``drop_frac``)."""
     b, l, d = x.shape
     n_tok = b * l
     xf = x.reshape(n_tok, d)
-    w, idx, aux = router_topk(p, xf, top_k)
+    w, idx, aux = pt.on_replicas(lambda r, xs: router_topk({"router": r}, xs, top_k),
+                                 p["router"], xf)
     cap = capacity(n_tok, top_k, n_routed, capacity_factor)
-    buf, info = dispatch_sort(xf, idx, w, n_routed, cap)
-    y_buf = expert_ffn(p["experts"], buf, compute_dtype)
+    buf, info = dispatch_sort(xf, idx, w, n_routed, cap, cap_shard=cap_shard)
+    y_buf = expert_ffn(p["experts"], buf, compute_dtype, cap_shard=cap_shard)
     out = combine_sort(y_buf, info, w, n_tok)
     if "shared" in p:
         out = out + layers.swiglu(p["shared"], xf, compute_dtype)

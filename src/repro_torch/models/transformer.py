@@ -10,9 +10,14 @@ are NamedTuples of stacked (n_layers, ...) tensors, in JAX's layouts. A
 Python loop over layers takes the place of ``lax.scan``. ``remat="full"``
 runs each layer body under ``torch.utils.checkpoint`` where JAX wraps it
 in ``jax.checkpoint`` (:func:`run_body`): a training forward keeps only
-each layer's input and the backward recomputes the body. ``attn_kv_hoist``,
-``moe_cap_shard`` and JAX's ``pt.act*`` are sharding hints, the identity
-on one device: they keep their fields here and have no effect.
+each layer's input and the backward recomputes the body. JAX's sharding
+hints (``pt.act*``, ``models.partitioning``) stand where JAX has them, the
+inter-layer carry's ``act_seq`` outside the checkpointed body; with
+``moe_cap_shard`` the MoE buffers shard their capacity over DP. All of
+them are the identity without a mesh (``partitioning.use_mesh``).
+``attn_kv_hoist`` is kept for JAX's config and has no effect: JAX's hint
+lays K and V out before its query-chunk loop, and here attention lays
+them out once before it attends in every case.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, mamba2, mla, moe
+from repro_torch.models import partitioning as pt
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
@@ -134,7 +140,10 @@ class _LayerSlice(torch.autograd.Function):
     place (zeros first) and passes none on: ``select``'s backward would
     build a zero tensor of the whole stack for every layer and sum them,
     n_layers x the stack's bytes a step (~11 GB each time for
-    llama3.2-3b). The stacked leaf's ``.grad`` is the same either way."""
+    llama3.2-3b). The stacked leaf's ``.grad`` is the same either way. On a
+    mesh the zeros take the stack's placements and the in-place add
+    brings each layer's gradient to them first (a gradient ``Partial``
+    over an axis is summed over it as it is added)."""
 
     @staticmethod
     def forward(ctx, stacked, i):
@@ -268,7 +277,7 @@ def _mlp(cfg, p, x):
 
 def _moe(cfg, p, x):
     return moe.moe_block(p, x, top_k=cfg.top_k, n_routed=cfg.n_routed,
-                         capacity_factor=cfg.capacity_factor)
+                         capacity_factor=cfg.capacity_factor, cap_shard=cfg.moe_cap_shard)
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -298,6 +307,7 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 def layer_forward(cfg: ArchConfig, p: dict, h, positions):
     """Full-sequence layer. Returns (h, cache tensors, aux)."""
+    h = pt.seq_whole(h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family in ("ssm", "hybrid"):
         out, cache = mamba2.mamba2_forward(p["mixer"], _norm(cfg, p["ln1"], h), cfg.ssm_dims,
@@ -378,6 +388,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *, patch_embeds
     for i in range(cfg.n_layers):
         h, cache_l, aux_l = run_body(remat, layer_forward, cfg, layer_params(params, i), h,
                                      positions)
+        h = pt.act_seq(h)  # sequence-parallel inter-layer carry
         aux = aux + aux_l
         if return_cache:
             caches.append(cache_l)

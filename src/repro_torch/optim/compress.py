@@ -10,8 +10,8 @@ Error feedback: the quantization error is carried to the next step
 run.
 
 ``compress`` / ``decompress`` are pure local transforms.
-``all_reduce_compressed``, the collective over a named mesh axis, goes
-with the sharding slice.
+``all_reduce_compressed`` is the collective over a process group (or one
+axis of a mesh), JAX's over a named axis inside ``shard_map``.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 BLOCK = 256
@@ -60,3 +61,50 @@ def compression_ratio(shape) -> float:
     raw = 4 * n
     packed = nblk * (4 + 4 + BLOCK)
     return raw / packed
+
+
+def _group(group_or_mesh_dim):
+    """A process group from a group, a one-dimensional ``DeviceMesh``, or
+    (mesh, axis name)."""
+    if isinstance(group_or_mesh_dim, tuple):
+        mesh, axis = group_or_mesh_dim
+        return mesh.get_group(axis)
+    if hasattr(group_or_mesh_dim, "get_group"):
+        return group_or_mesh_dim.get_group()
+    return group_or_mesh_dim
+
+
+def all_reduce_compressed(g: torch.Tensor, group_or_mesh_dim, carry: torch.Tensor | None = None):
+    """Mean-all-reduce of this rank's gradient ``g`` over a process group
+    (or a mesh axis, ``(mesh, name)``), int8 on the wire: every rank of the
+    group calls it. Returns (mean, new_carry) in JAX's layout (``g``'s
+    shape).
+
+    Two collectives, JAX's: a tiny fp32 MAX all-reduce of the per-block
+    deviation scales first, so every rank quantizes its residuals against
+    the same scale, then the residuals summed exactly in int32 beside an
+    fp32 sum of the per-block anchors. Each rank's quantization error is
+    its new carry (error feedback)."""
+    group = _group(group_or_mesh_dim)
+    size = dist.get_world_size(group)
+    flat = g.reshape(-1).float()
+    if carry is not None:
+        flat = flat + carry.reshape(-1)
+    n = flat.shape[0]
+    pad = (-n) % BLOCK
+    x = F.pad(flat, (0, pad)).reshape(-1, BLOCK)
+    anchor = torch.mean(x, dim=1)
+    dev = x - anchor[:, None]
+    scale = torch.amax(torch.abs(dev), dim=1)
+    dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)  # shared per-block scale
+    scale = torch.clamp_min(scale, 1e-30)
+    resid = torch.clamp(torch.round(dev / scale[:, None] * 127.0), -127, 127)
+    err = dev - resid * (scale[:, None] / 127.0)
+    new_carry = err.reshape(-1)[:n].reshape(g.shape)
+    resid_sum = resid.to(torch.int32)  # the int8 payload, summed exactly in int32
+    dist.all_reduce(resid_sum, op=dist.ReduceOp.SUM, group=group)
+    anchor_sum = anchor.clone()
+    dist.all_reduce(anchor_sum, op=dist.ReduceOp.SUM, group=group)
+    total = anchor_sum[:, None] + resid_sum.float() * (scale[:, None] / 127.0)
+    mean = (total / size).reshape(-1)[:n].reshape(g.shape)
+    return mean, new_carry

@@ -452,7 +452,13 @@ def assert_loss_and_grads_close(arch: str, b: int = 2, l: int = 32, **cfg_kw):
     input ulps), and each gradient within :data:`GRAD_TOL_ULPS` normwise,
     every leaf differentiable. Returns the worst normwise reading.
     ``cfg_kw`` replaces config fields in both packages."""
-    r = loss_and_grads_both(arch, b, l, **cfg_kw)
+    return check_loss_and_grads(arch, loss_and_grads_both(arch, b, l, **cfg_kw))
+
+
+def check_loss_and_grads(arch: str, r: dict):
+    """:func:`assert_loss_and_grads_close`'s checks on ``r``, a dict as
+    :func:`loss_and_grads_both` returns (the port's side from any run,
+    e.g. on a mesh). Returns the worst normwise gradient reading."""
     assert r["flips"].size == 0, f"router flips at tokens {r['flips']}: not comparable"
     tol = float(ttr.logit_tolerance(torch.as_tensor(r["logits"])).max())
     lse_max = float(np.abs(np.log(np.exp(r["logits"].astype(np.float64)).sum(-1))).max())

@@ -23,6 +23,7 @@ from repro_torch.kernels import sph_gradient as tsg
 from repro_torch.core import nnps as tnnps
 from repro_torch.core import scheme as tsch
 from repro_torch.kernels import ops as tops
+from repro_torch.models import attention as tattn
 from test_torch_helpers import (DAM, STORAGE, WCSPH, make_lanes, make_nnps_tiles,  # noqa: F401
                                 make_tiles, one_torch_thread)
 
@@ -1093,3 +1094,89 @@ def test_kernel_counts_on_the_card_equal_meta(cuda_device, dtype, causal):
             assert after == before
     assert counts["meta"] == counts["cuda"]
     assert set(counts["cuda"]) == {"flash_attention", "flash_attention_bwd", "rcll_kv_decode"}
+
+
+#: Model degrees over llama3.2-3b's 24 heads / 8 kv heads: 2, 4 and 8 keep
+#: whole kv groups; 3 and 16 (2 heads a rank, 4 ranks empty) cut them.
+SHARD_DEGREES = [2, 3, 4, 8, 16]
+
+
+def _shard_inputs(seed, dev):
+    q, k, v = tfa.random_inputs(seed, 2, 24, 8, 1024, 1024, 128, torch.bfloat16,
+                                heads_last=True, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return q, k, v, torch.randn(q.shape, generator=g, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", SHARD_DEGREES)
+def test_flash_head_shards_match_the_whole_call(cuda_device, degree):
+    """K7 and K7b on each model rank's head shard of llama3.2-3b's layer
+    shapes (2, 24, 1024, 128) bf16 causal (``attention.check_head_shards``):
+    outputs and dQ bit-equal to one whole call, dK and dV bit-equal where
+    every rank holds whole kv groups, else within K7b's rounding bound; one
+    K7 and one K7b launch per shard that attends, and one for the whole."""
+    f0, b0 = tfa.flash_attention.launches, tfa.flash_attention_bwd.launches
+    r = tattn.check_head_shards(*_shard_inputs(40 + degree, cuda_device), degree)
+    assert r["ok"] and r["out_equal"] and r["dq_equal"], r
+    assert r["whole_groups"] == (degree in (2, 4, 8)), r
+    assert r["dkv_equal"] or not r["whole_groups"], r
+    assert tfa.flash_attention.launches - f0 == r["calls"] + 1
+    assert tfa.flash_attention_bwd.launches - b0 == r["calls"] + 1
+
+
+def _kv_one_group_off(q, k, v, h0, h1, n_heads, *, causal):
+    return tattn.local_attention(q, k.roll(-1, 1), v.roll(-1, 1), h0, h1, n_heads,
+                                 causal=causal)
+
+
+@pytest.mark.cuda
+def test_flash_head_shard_check_fails_a_kv_offset(cuda_device):
+    r = tattn.check_head_shards(*_shard_inputs(60, cuda_device), 4, local=_kv_one_group_off)
+    assert not r["ok"] and not r["out_equal"], r
+
+
+@pytest.mark.cuda
+def test_flash_refuses_a_dtensor(cuda_device):
+    """A DTensor never reaches the kernels' data pointers: they raise, and
+    the mesh path hands them each rank's local shard."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.launch import mesh as tmesh
+
+    q, k, v = tfa.random_inputs(61, 1, 8, 2, 128, 128, 64, torch.bfloat16, device=cuda_device)
+    mesh = tmesh.make_mesh((1, 1), ("data", "model"), cuda_device)
+    try:
+        dq, dk, dv = (distribute_tensor(t, mesh, [Replicate(), Replicate()]) for t in (q, k, v))
+        with pytest.raises(TypeError, match="local shard"):
+            tfa.flash_attention(dq, dk, dv)
+    finally:
+        tmesh.release()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,remat", [(a, "none") for a in (
+    "granite-3-8b", "stablelm-1.6b", "internlm2-20b", "llama3.2-3b", "deepseek-v2-236b",
+    "deepseek-moe-16b", "whisper-large-v3", "zamba2-1.2b", "pixtral-12b", "mamba2-130m")]
+    + [(a, "full") for a in ("llama3.2-3b", "zamba2-1.2b", "whisper-large-v3",
+                            "deepseek-v2-236b", "mamba2-130m")])
+def test_every_family_trains_bit_equal_on_a_1x1_mesh(cuda_device, monkeypatch, arch, remat):
+    """``TrainRun(mesh_shape=(1, 1))`` at SMOKE size on the card (a one-rank
+    NCCL group, DTensor parameters, K7/K7b on local shards) against the run
+    without a mesh: losses and final parameters bit for bit."""
+    import dataclasses
+
+    from repro_torch.launch.train import TrainRun
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+
+    get = registry.get_config
+    monkeypatch.setattr(registry, "get_config", lambda a, smoke=False: dataclasses.replace(
+        get(a, smoke=smoke), remat=remat))
+    kw = dict(arch=arch, smoke=True, steps=2, batch=2, seq=64, log_every=100)
+    mesh = TrainRun(mesh_shape=(1, 1), **kw).run()
+    plain = TrainRun(**kw).run()
+    assert mesh["losses"] == plain["losses"]
+    for a, b in zip(adamw.tree_leaves(mesh["params"]), adamw.tree_leaves(plain["params"]),
+                    strict=True):
+        assert torch.equal(a.detach().to_local(), b.detach())

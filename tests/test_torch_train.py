@@ -290,8 +290,18 @@ def test_heartbeat_and_guard(tmp_path):
 
 
 def test_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="sharding"):
-        ttrain.TrainRun(arch="llama3.2-3b", mesh_shape=(1, 1), device="cpu").build()
+    """No GPU without ``device``; a mesh whose size is not the process
+    group's world size, or a mesh of several devices with no group."""
+    import torch.distributed as dist
+
+    with pytest.raises(RuntimeError, match="needs an initialized process group"):
+        ttrain.TrainRun(arch="llama3.2-3b", mesh_shape=(2, 2), device="cpu").build()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="has 2 devices; the process group has 1 ranks"):
+            ttrain.TrainRun(arch="llama3.2-3b", mesh_shape=(1, 2), device="cpu").build()
+    finally:
+        dist.destroy_process_group()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ttrain.TrainRun(arch="llama3.2-3b").build()
