@@ -256,8 +256,13 @@ Phases (each prints its own lines and raises on failure):
      before and read just after); ms a step by part, tokens/s, peak
      memory; last, one step of B 1 x 4096 without remat, as a reading
      (whether it fits); (b) ``python -m repro_torch.launch.dryrun`` on
-     meta (no card) over the registry's 32 cells at full size, one
-     process a cell, 6 at once, and ``--all --smoke``: every record ok;
+     meta (no card, the host's CPU): ``--all --smoke`` (mesh "1"), every
+     record ok; and, started with the script, ``--all --both --smoke``
+     on JAX's 16x16 and 2x16x16 meshes (fake process groups of 256 and
+     512 ranks): exit 0, 64 records ok with n_chips 256 and 512, every
+     train record with a collective, no process group left; then
+     llama3.2-3b's ``train_4k`` and ``decode_32k`` at full size on both
+     (per-device FLOPs, bytes, collective bytes, seconds, labelled CPU);
      (c) the dry run's cells at ad hoc ``ShapeSpec``s held against the
      card: the FLOPs counted (``kernels.cost.CostCounter``) over one real
      train step at B 2 x 1024 and over phase 9's prefill (B 4 x 1024) equal
@@ -290,8 +295,13 @@ Phases (each prints its own lines and raises on failure):
      launch each per shard call; (c) planted
      faults: the kv heads one group off in the local-shard helper -> (b),
      the mesh path's attention through the plain versions on its CUDA
-     shards -> (a)'s launch gate. K7's and K7b's rows of the kernel table
-     add (a)'s mesh launches.
+     shards -> (a)'s launch gate; (d) the dry run of (a)'s train cell (B
+     2 x 1024) on a fake (1, 1) mesh (after (a)'s NCCL group is released)
+     counts the FLOPs ``CostCounter`` read over (a)'s first (1, 1) step on
+     the card and the dry run without a mesh, K7 56 and K7b 28 on both
+     sides, and no collective; plant: the clip norm all-reduced on one
+     device -> (d). K7's and K7b's rows of the kernel table add (a)'s
+     mesh launches.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA (or without the package
@@ -4704,6 +4714,84 @@ def p16_dryrun_gate(proc: subprocess.Popen, out_dir: Path, gpu: str) -> None:
         f"cells ok ({gpu})")
 
 
+#: (b): the full-size cells run on JAX's meshes beside the CLI's SMOKE run
+P16_MESH_CELLS = (("llama3.2-3b", "train_4k"), ("llama3.2-3b", "decode_32k"))
+
+
+def p16_mesh_dryrun_start(out_dir: Path) -> list:
+    """(b) on JAX's meshes, started when the script starts (they run on the
+    host's CPU beside every phase, one core each, at a lower priority):
+    ``python -m repro_torch.launch.dryrun --all --both --smoke`` (the 32
+    cells on 16x16 and 2x16x16, each over a fake process group of 256 or
+    512 ranks) and, one process each, :data:`P16_MESH_CELLS` at full size
+    with ``--both``. Returns [(label, Popen, out dir, start time)]."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    runs = [("--all --both --smoke", ["--all", "--both", "--smoke"], out_dir / "smoke")]
+    runs += [(f"{a} {sh} --both", ["--arch", a, "--shape", sh, "--both"], out_dir / "full")
+             for a, sh in P16_MESH_CELLS]
+    procs = []
+    for i, (label, args, out) in enumerate(runs):
+        out.mkdir(parents=True, exist_ok=True)
+        with open(out_dir / f"log{i}.txt", "w") as f:
+            procs.append((label, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", str(out)],
+                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(10)), out, time.perf_counter()))
+    return procs
+
+
+def p16_mesh_dryrun_gate(procs: list, out_dir: Path, gpu: str) -> None:
+    """(b)'s gate on JAX's meshes: each process exits 0 (the CLI fails where
+    a fake mesh's process group outlives its cell); the 64 SMOKE records
+    ``ok``, named 16x16 and 2x16x16 with n_chips 256 and 512, every train
+    record with at least one collective; the full-size cells ``ok``, their
+    per-device FLOPs, bytes, collective bytes and seconds printed."""
+    from repro_torch.models import registry
+
+    for i, (label, proc, _, t0) in enumerate(procs):
+        rc = proc.wait(timeout=900)
+        if rc != 0:
+            text = (out_dir / f"log{i}.txt").read_text()
+            fails = [line for line in text.splitlines() if " FAIL " in line]
+            raise AssertionError(f"(b) dryrun {label}: exit {rc}; {fails[:6]}; {text[-300:]}")
+    smoke = procs[0][2]
+    bad, n = [], 0
+    for arch, shape in registry.runnable_cells(smoke=True):
+        for mesh, chips in (("16x16", 256), ("2x16x16", 512)):
+            f = smoke / f"{arch}__{shape}__{mesh}.json"
+            rec = json.loads(f.read_text()) if f.exists() else {"ok": False}
+            n += rec["ok"]
+            if (not rec["ok"] or rec["mesh"] != mesh or rec["n_chips"] != chips
+                    or (rec["kind"] == "train" and not sum(rec["collectives"]["counts"].values()))):
+                bad.append((arch, shape, mesh, rec.get("error")))
+    if bad or n != 64:
+        raise AssertionError(f"(b) --all --both --smoke: {n} ok records of 64; bad {bad[:4]}")
+    secs = sum(json.loads(f.read_text())["t_total_s"] for f in smoke.glob("*.json"))
+    log(f"[16] (b) python -m repro_torch.launch.dryrun --all --both --smoke on the host's CPU "
+        f"(meta tensors, fake process groups of 256 and 512 ranks; CUDA_VISIBLE_DEVICES "
+        f"empty): exit 0, 64 records ok (16x16 n_chips 256, 2x16x16 n_chips 512), every "
+        f"train record with collectives, no process group left; cells {secs:.1f} s (CPU)")
+    for arch, shape in P16_MESH_CELLS:
+        for mesh in ("16x16", "2x16x16"):
+            rec = json.loads((procs[1][2] / f"{arch}__{shape}__{mesh}.json").read_text())
+            if not rec["ok"]:
+                raise AssertionError(f"(b) {arch} {shape} {mesh} at full size: {rec['error']}")
+            c = rec["collectives"]
+            calls = [rec["kernels"].get(k, {}).get("calls", 0)
+                     for k in ("flash_attention", "flash_attention_bwd", "rcll_kv_decode")]
+            log(f"[16] (b) {arch} {shape} on {mesh} at full size, on the host's CPU (meta): per "
+                f"device {rec['flops_per_device']} FLOPs, {rec['bytes_per_device']} bytes, "
+                f"collective bytes {c['total']} (" + ", ".join(
+                    f"{k} {v} in {c['counts'][k]}" for k, v in c["by_op"].items() if v)
+                + f"), K7/K7b/K6 calls {calls}, "
+                f"argument bytes {rec['memory']['argument_size_in_bytes']}, bound "
+                f"{1e3 * max(rec['t_compute'], rec['t_memory'], rec['t_collective']):.3f} ms "
+                f"({rec['bottleneck']}), useful_flops_frac {rec['useful_flops_frac']:.4f}; "
+                f"{rec['t_total_s']:.1f} s on the CPU; roofline terms are the dry run's H100 "
+                f"constants, not readings ({gpu})")
+
+
 def p16_counted(fn) -> "object":
     """The dry run's counter over ``fn()`` on the card."""
     from repro_torch.kernels.cost import CostCounter
@@ -4940,6 +5028,8 @@ def phase16_remat_dryrun(results: dict) -> None:
         missed = p16_card_phases(a, results, gpu, spent)
         t0 = time.perf_counter()
         p16_dryrun_gate(proc, out_dir, gpu)
+        if results.get("p16_mesh_runs"):
+            p16_mesh_dryrun_gate(*results["p16_mesh_runs"], gpu)
         spent["(b) wait"] = time.perf_counter() - t0
     finally:
         if proc.poll() is None:
@@ -5092,12 +5182,36 @@ def p17_medians(r: dict) -> dict:
     return med
 
 
+def p17_count_first_step(record: dict):
+    """Over ``launch.train.train_step``: its first call counted by the dry
+    run's ``CostCounter`` (kept in ``record["counter"]``), every call run
+    as it is."""
+    from repro_torch.kernels.cost import CostCounter
+    from repro_torch.launch import train as ttrain
+
+    orig = ttrain.train_step
+
+    def counted(*args, **kw):
+        if "counter" in record:
+            return orig(*args, **kw)
+        with CostCounter() as c:
+            out = orig(*args, **kw)
+        record["counter"] = c
+        return out
+
+    return _planted(ttrain, train_step=counted)
+
+
 def p17_mesh_vs_plain(gpu: str) -> dict:
     """(a): the (1, 1) mesh run, then the run without a mesh, one after the
     other in this process (each peaks near the card's memory, so the first
     is on the host before the second starts): losses, final parameters and
-    moments bit-equal; the mesh run's launches."""
-    mesh = p17_train((1, 1))
+    moments bit-equal; the mesh run's launches. The mesh run's first step
+    is counted by the dry run's counter, for (d)."""
+    counted = {}
+    with p17_count_first_step(counted):
+        mesh = p17_train((1, 1))
+    mesh["counter"] = counted["counter"]
     p17_launch_gate("(a) the (1, 1) mesh run", mesh["launches"], mesh["cfg"], P17_RUN["steps"])
     plain = p17_train(())
     if mesh["losses"] != plain["losses"]:
@@ -5185,6 +5299,89 @@ def p17_planted_faults(gpu: str) -> list:
     return missed
 
 
+def p17_fake_dryrun() -> "object":
+    """The dry run's train cell of (a) (``P17_ARCH``, B x L of ``P17_RUN``)
+    on a fake (1, 1) mesh on meta: its ``CostCounter``. Raises where a
+    process group is still initialized (the one (a) made must be gone)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+
+    b, l = P17_RUN["batch"], P17_RUN["seq"]
+    with mesh_lib.fake_mesh((1, 1), ("data", "model")) as mesh:
+        _, fn, args, _ = dryrun.build_cell(P17_ARCH, ShapeSpec(f"train_{b}x{l}", l, b, "train"),
+                                           smoke=P17_SMOKE, mesh=mesh)
+        counter, _ = dryrun.memory(fn, args)
+    if torch.distributed.is_initialized():
+        raise AssertionError("(d) a process group is left initialized after the fake mesh")
+    return counter
+
+
+def p17_dryrun_gate(label: str, fake, card, plain_flops: int, cfg) -> None:
+    """(d)'s gate: the fake (1, 1) mesh's dry run counts the FLOPs the
+    counter read over (a)'s first (1, 1) NCCL step on the card and the
+    dry run of the same cell without a mesh (mesh "1"), K7 2 x n_layers
+    and K7b n_layers calls on both sides, and no collective."""
+    want = train_launches(cfg, 1)
+    for side, c in (("the fake (1, 1) dry run", fake), ("the card's (1, 1) step", card)):
+        calls = {k: c.kernels.get(n, {}).get("calls", 0)
+                 for k, n in (("k7", "flash_attention"), ("k7b", "flash_attention_bwd"))}
+        if calls != want:
+            raise AssertionError(f"(d) {label}: {side} counts kernel calls {calls}, "
+                                 f"expected {want}")
+        if c.collectives["total"] or sum(c.collectives["counts"].values()):
+            raise AssertionError(f"(d) {label}: {side} counts collectives {c.collectives}")
+    if not fake.flops == card.flops == plain_flops:
+        raise AssertionError(f"(d) {label}: FLOPs {fake.flops} (fake (1, 1) dry run), "
+                             f"{card.flops} (the card's (1, 1) step), {plain_flops} (dry run "
+                             f"without a mesh)")
+
+
+def _norm_reduced_always(orig):
+    """A planted ``train.mesh_grad_norm`` that all-reduces the squared norm
+    over the world even on a mesh of one device (the same value there, one
+    collective more)."""
+    def norm(params, grads):
+        from torch.distributed import _functional_collectives as funcol
+
+        n = orig(params, grads)
+        return funcol.wait_tensor(funcol.all_reduce(n * n, "sum",
+                                                    torch.distributed.group.WORLD)).sqrt()
+
+    return norm
+
+
+def p17_dryrun_checks(card, gpu: str) -> list:
+    """(d) and its plant: returns the plants not caught. (On a (1, 1) mesh
+    every product runs on local tensors, so a counter that also counted
+    DTensor ops at their global shapes would count no FLOP more: the plant
+    is in the mesh path's collectives instead.)"""
+    from repro_torch.launch import train as ttrain
+
+    b, l = P17_RUN["batch"], P17_RUN["seq"]
+    t0 = time.perf_counter()
+    plain = p16_dryrun_cell("train", b, l)["flops_per_device"]
+    fake = p17_fake_dryrun()
+    cfg = p17_train_run(()).config()
+    p17_dryrun_gate("(a)'s cell", fake, card, plain, cfg)
+    log(f"[17] (d) the dry run of (a)'s train cell (B {b} x {l}) on a fake (1, 1) mesh (meta): "
+        f"{fake.flops} FLOPs = the dry-run counter over (a)'s first (1, 1) NCCL step on the card "
+        f"= the dry run without a mesh; K7 {fake.kernels['flash_attention']['calls']}, K7b "
+        f"{fake.kernels['flash_attention_bwd']['calls']} calls on both sides; no collective on "
+        f"either; the one-rank NCCL group released before the fake group was made; "
+        f"{time.perf_counter() - t0:.1f} s ({gpu})")
+    with _planted(ttrain, mesh_grad_norm=_norm_reduced_always(ttrain.mesh_grad_norm)):
+        planted = p17_fake_dryrun()
+    what = "the clip norm all-reduced on a one-device mesh"
+    try:
+        p17_dryrun_gate("planted", planted, card, plain, cfg)
+        log(f"[17] (d) plant: {what}: (d) PASSED: not caught ({gpu})")
+        return [what]
+    except AssertionError as e:
+        log(f"[17] (d) plant: {what}: (d) fails, as it must: {str(e)[:200]} ({gpu})")
+        return []
+
+
 def phase17_sharding(results: dict) -> None:
     """Sharding on one card: (a) llama3.2-3b at full width and depth on a
     (1, 1) mesh bit-equal to the run without one, (b) K7 and K7b on each
@@ -5231,6 +5428,7 @@ def phase17_sharding(results: dict) -> None:
     t0 = time.perf_counter()
     missed = p17_planted_faults(gpu)
     log(f"[17] (c) planted faults in {time.perf_counter() - t0:.1f} s ({gpu})")
+    missed += p17_dryrun_checks(mesh["counter"], gpu)
     for row in results.get("lm_kernels", []) + results.get("train_kernels", []):
         key = {"flash_attention": "k7", "flash_attention_bwd": "k7b"}.get(row["name"])
         if key:
@@ -5307,12 +5505,40 @@ def main() -> int:
 
     results: dict = {}
     t0 = time.perf_counter()
+    mesh_dir, mesh_runs = None, []
+    if 16 in phases:  # (b)'s dry runs on JAX's meshes start now, on the host's CPU
+        import tempfile
+
+        mesh_dir = Path(tempfile.mkdtemp(prefix="p16_mesh_"))
+        mesh_runs = p16_mesh_dryrun_start(mesh_dir)
+        results["p16_mesh_runs"] = (mesh_runs, mesh_dir)
+    try:
+        run_phases(phases, results, args.parent)
+    finally:
+        for _, proc, _, _ in mesh_runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if mesh_dir is not None:
+            shutil.rmtree(mesh_dir, ignore_errors=True)
+    log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
+    if 1 not in phases:
+        log(gpu_line())
+    log(json.dumps({"kernels": results.get("kernels", []) + results.get("nnps_kernels", [])
+                    + results.get("lm_kernels", []) + results.get("train_kernels", [])}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(phases: set, results: dict, parent) -> None:
     if 1 in phases:
         phase1_build()
     if 2 in phases:
         phase2_kernels()
     if 3 in phases:
-        phase3_main_path(results, args.parent)
+        phase3_main_path(results, parent)
     if 4 in phases:
         phase4_stale_binning()
     if 5 in phases:
@@ -5322,9 +5548,9 @@ def main() -> int:
     if 7 in phases:
         phase7_planted_faults()
     if 8 in phases:
-        phase8_nnps_path(results, args.parent)
+        phase8_nnps_path(results, parent)
     if 9 in phases:
-        phase9_serving(results, args.parent)
+        phase9_serving(results, parent)
     if 10 in phases:
         phase10_backends()
     if 11 in phases:
@@ -5336,20 +5562,11 @@ def main() -> int:
     if 14 in phases:
         phase14_families()
     if 15 in phases:
-        phase15_training(results, args.parent)
+        phase15_training(results, parent)
     if 16 in phases:
         phase16_remat_dryrun(results)
     if 17 in phases:
         phase17_sharding(results)
-    log(f"[done] phases {sorted(phases)} in {time.perf_counter() - t0:.1f} s")
-    if 1 not in phases:
-        log(gpu_line())
-    log(json.dumps({"kernels": results.get("kernels", []) + results.get("nnps_kernels", [])
-                    + results.get("lm_kernels", []) + results.get("train_kernels", [])}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -27,6 +27,17 @@ counted over the ops it runs on any device, meta included.
 
 The FLOPs are also split by the operands' dtype (bf16 and fp16 on the
 tensor cores, the rest not) for the roofline.
+
+On a mesh (DTensors) the counter counts this rank's own work: an op on
+DTensors is handed on to DTensor (``NotImplemented``), whose ops on the
+rank's local tensors come back through the counter and are counted once,
+FLOPs, bytes and held storages alike. The ops DTensor runs to propagate
+shapes (under a ``FakeTensorMode``, on global shapes) are not counted.
+Each functional collective (``torch.ops._c10d_functional``, which DTensor's
+redistributions and ``torch.distributed._functional_collectives`` run) is
+counted under JAX's name (:data:`COLLECTIVES`): its calls and its result's
+bytes (:attr:`CostCounter.collectives`), JAX's ``collective_bytes``
+convention; its traffic is not in :attr:`CostCounter.bytes`.
 """
 from __future__ import annotations
 
@@ -42,6 +53,19 @@ _OPEN: list = []  # the counters open now, innermost last
 _TENSOR_CORE = (torch.bfloat16, torch.float16)
 _ALLOCATIONS = frozenset({"empty", "empty_strided", "new_empty", "new_empty_strided",
                           "empty_like"})
+#: JAX's names of the collectives (``repro.launch.dryrun._COLLECTIVES``).
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+#: Each functional collective op by its name (without the namespace) ->
+#: JAX's name; the ``_coalesced`` forms count each of their results.
+_COLLECTIVE_OPS = {"all_gather_into_tensor": "all-gather", "all_gather_into_tensor_out":
+                   "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
+                   "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+                   "all_reduce_coalesced": "all-reduce", "all_reduce_coalesced_": "all-reduce",
+                   "reduce_scatter_tensor": "reduce-scatter",
+                   "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                   "all_to_all_single": "all-to-all", "permute_tensor": "collective-permute"}
+_FUNCOL_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
 
 
 def _tensors(x):
@@ -67,24 +91,39 @@ def tensor_bytes(t: torch.Tensor) -> int:
 
 def _op_info(func) -> tuple:
     """(FLOP formula or None, returns a view, returns new storage, is an
-    allocation) of an aten op, from its schema."""
+    allocation, JAX's collective name or None (an op of the functional
+    collectives' namespaces that is not a collective, ``wait_tensor``, is
+    "" : neither counted nor moving bytes)) of an op, from its schema."""
     aliases = [r.alias_info for r in func._schema.returns if r.alias_info is not None]
+    space, _, name = func._schema.name.partition("::")
+    coll = _COLLECTIVE_OPS.get(name, "") if space in _FUNCOL_NAMESPACES else None
     return (flop_registry.get(func._overloadpacket),
             bool(aliases) and not any(a.is_write for a in aliases), not aliases,
-            func._schema.name.split("::")[-1] in _ALLOCATIONS)
+            name in _ALLOCATIONS, coll)
+
+
+def _propagating() -> bool:
+    """Whether a ``FakeTensorMode`` is active: DTensor's sharding
+    propagation running an op on fake global shapes, not the rank's work."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
 
 
 class CostCounter(TorchDispatchMode):
     """Counts FLOPs, bytes and held storages while open (a context
     manager; counters nest, the innermost gets the kernels' counts).
-    Read after it closes: :attr:`flops` (aten + kernels), :attr:`bytes`,
+    Read after it closes: :attr:`flops` (aten + kernels; the aten part by
+    op in :attr:`flops_by_op`), :attr:`bytes`,
     :attr:`flops_tensor_core` / :attr:`flops_other` (by operand dtype),
-    :attr:`kernels` ({name: {"calls", "flops", "bytes"}}) and
-    :attr:`peak_made_bytes`; :meth:`held_bytes` while it is open."""
+    :attr:`kernels` ({name: {"calls", "flops", "bytes"}}),
+    :attr:`collectives` (JAX's record: {"by_op": bytes, "counts", "total"})
+    and :attr:`peak_made_bytes`; :meth:`held_bytes` while it is open."""
 
     def __init__(self):
         super().__init__()
+        self.collectives = {"by_op": dict.fromkeys(COLLECTIVES, 0),
+                            "counts": dict.fromkeys(COLLECTIVES, 0), "total": 0}
         self.aten_flops = 0
+        self.flops_by_op: dict = {}
         self.aten_bytes = 0
         self.flops_tensor_core = 0
         self.flops_other = 0
@@ -134,15 +173,32 @@ class CostCounter(TorchDispatchMode):
         self.peak_made_bytes = max(self.peak_made_bytes, self._live)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # DTensor runs the rank's local ops, which come back here
         out = func(*args, **kwargs)
+        if _propagating():
+            return out
         info = self._info.get(func)
         if info is None:
             info = self._info[func] = _op_info(func)
-        flop_fn, view, fresh, alloc = info
+        flop_fn, view, fresh, alloc, coll = info
+        if coll is not None:
+            if coll:
+                n = sum(tensor_bytes(t) for t in _tensors(out))
+                self.collectives["by_op"][coll] += n
+                self.collectives["counts"][coll] += 1
+                self.collectives["total"] += n
+            if fresh:
+                self._track(out)
+            return out
         if flop_fn is not None:
             n = flop_fn(*args, **kwargs, out_val=out)
             self.aten_flops += n
+            key = str(func._overloadpacket)
+            self.flops_by_op[key] = self.flops_by_op.get(key, 0) + int(n)
             if args[0].dtype in _TENSOR_CORE:
                 self.flops_tensor_core += n
             else:

@@ -13,9 +13,18 @@ is; its world size must equal the mesh's size. With none, a mesh of one
 device gets a one-rank group over an in-memory store
 (``torch.distributed.HashStore``: no network, no launcher), which
 :func:`release` destroys; a larger mesh raises.
+
+The dry run's meshes are :func:`fake_mesh` and :func:`fake_production_mesh`:
+JAX's production meshes over a ``"fake"`` process group of 256 or 512
+ranks in this one process, as JAX's dry run fakes 512 host devices
+(``XLA_FLAGS=--xla_force_host_platform_device_count=512``). This process is
+rank 0; its collectives move nothing and return at once, and its tensors
+are meta. "Per device" means rank 0, which under ``torch.chunk``'s split
+holds the largest shard (GSPMD's padded one).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -61,9 +70,44 @@ def make_mesh(shape, axes, device=None):
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device)
+    return make_mesh(*production_shape(multi_pod), device)
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, axes):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` (device type "cpu"; the
+    dry run's tensors are meta) over a ``"fake"`` process group
+    (``torch.testing._internal.distributed.fake_pg.FakeStore``) of
+    ``prod(shape)`` ranks, this process rank 0, for the length of the
+    block; the group is destroyed after it, also when the block raises.
+    Raises where a process group is initialized already: the dry run makes
+    its own and leaves none behind."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in length")
+    if dist.is_initialized():
+        raise RuntimeError("a process group is initialized already; a fake mesh makes its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    finally:
+        dist.destroy_process_group()
+
+
+def production_shape(multi_pod: bool = False) -> tuple:
+    """(shape, axes) of JAX's production mesh: one pod (16, 16) ("data",
+    "model"), or two (2, 16, 16) ("pod", "data", "model")."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def fake_production_mesh(multi_pod: bool = False):
+    """:func:`fake_mesh` of JAX's production mesh (256 or 512 ranks)."""
+    return fake_mesh(*production_shape(multi_pod))
 
 
 def release() -> None:

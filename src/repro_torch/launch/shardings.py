@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.models import partitioning as pt
 from repro_torch.models.partitioning import P, NamedSharding
 
@@ -104,6 +106,46 @@ def distribute(tree, shardings):
         if t is None:
             return None
         return distribute_tensor(t, s.mesh, s.placements(t.dim()))
+
+    if isinstance(shardings, NamedSharding):
+        return pt.tree_map(lambda t: put(t, shardings), tree)
+    return _zip_map(put, tree, shardings)
+
+
+def constrain(tree, shardings):
+    """Each DTensor of ``tree`` redistributed to its ``NamedSharding`` in
+    ``shardings`` (the same structure; a single sharding applies to every
+    leaf), as JAX's ``out_shardings`` lay a jitted step's outputs out;
+    nothing moves where a leaf has its placements already."""
+    def put(t, s):
+        if t is None:
+            return None
+        if not pt.is_dtensor(t):  # made inside the step, the same on every rank
+            t = pt.from_replica(t, s.mesh)
+        return pt.redistribute_to(t, s.mesh, s.placements(t.dim()))
+
+    if isinstance(shardings, NamedSharding):
+        return pt.tree_map(lambda t: put(t, shardings), tree)
+    return _zip_map(put, tree, shardings)
+
+
+def lay_out(tree, shardings):
+    """Each tensor of ``tree`` as a DTensor on its ``NamedSharding`` in
+    ``shardings`` (the same structure; a single sharding applies to every
+    leaf) with no collective and no copy: this rank's shard of its
+    placements, a new tensor of its local shape (``torch.chunk``'s) on the
+    tensor's device, uninitialized. For the dry run's meta tensors, where
+    :func:`distribute` would run a scatter of nothing."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    def put(t, s):
+        if t is None:
+            return None
+        pl = s.placements(t.dim())
+        local, _ = compute_local_shape_and_global_offset(t.shape, s.mesh, pl)
+        return DTensor.from_local(torch.empty(local, dtype=t.dtype, device=t.device), s.mesh,
+                                  pl, run_check=False, shape=t.shape, stride=t.stride())
 
     if isinstance(shardings, NamedSharding):
         return pt.tree_map(lambda t: put(t, shardings), tree)

@@ -21,7 +21,8 @@ activations out while the steps run (``partitioning.use_mesh``). Tensors
 the models make inside (masks, positions, tables) count as replicated
 (``implicit_replication``). Each gradient is brought to its parameter's
 placement (:func:`placed_grad`: a sum over the ranks that hold parts of
-it) before AdamW updates each rank's whole copy in place. Rank 0 writes
+it) before AdamW updates each rank's copy in place, clipped by the norm
+over every rank's shards (:func:`mesh_grad_norm`). Rank 0 writes
 the checkpoints; a resume broadcasts them. Every rank returns its losses,
 which are the same on every rank.
 
@@ -39,6 +40,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager, reshard
 from repro_torch.core.solver import resolve_device
@@ -104,6 +106,33 @@ def placed_grad(p: torch.Tensor) -> torch.Tensor:
     return g.redistribute(p.device_mesh, p.placements).to_local().contiguous()
 
 
+def mesh_grad_norm(params: dict, grads: dict) -> torch.Tensor:
+    """The global norm of a mesh run's gradients (``grads``: each rank's
+    local tensors, in the placements of the DTensor ``params``), as JAX's
+    GSPMD computes it over the whole tree: each rank sums the squares of
+    the shards it holds, a leaf counted only on the ranks at coordinate 0
+    of every mesh axis that does not split it (a replicated leaf once, a
+    leaf split over "data" once for each of its shards), and one
+    all-reduce over every rank sums them."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+
+    leaves = adamw.tree_leaves(params)
+    total = torch.zeros((), dtype=torch.float32, device=_local(leaves[0]).device)
+    mesh = None
+    for p, g in zip(leaves, adamw.tree_leaves(grads)):
+        mesh = p.device_mesh
+        coord = mesh.get_coordinate()
+        if all(isinstance(pl, Shard) or c == 0 for pl, c in zip(p.placements, coord)):
+            total = total + adamw.square_sum(g)
+    if mesh.size() > 1:  # a mesh of one device holds every leaf whole
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"the mesh's {mesh.size()} devices are not the world's "
+                             f"{dist.get_world_size()} ranks")
+        total = funcol.wait_tensor(funcol.all_reduce(total, "sum", dist.group.WORLD))
+    return torch.sqrt(total)
+
+
 def _local(t):
     """A DTensor's local tensor (its storage, outside autograd), else ``t``."""
     return t.to_local() if pt.is_dtensor(t) else t
@@ -133,7 +162,8 @@ def train_step(mod, cfg, ocfg: adamw.OptConfig, params: dict, opt_state: adamw.O
             grads = adamw.tree_map(placed_grad, params)
             local = adamw.OptState(opt_state.step, adamw.tree_map(_local, opt_state.mu),
                                    adamw.tree_map(_local, opt_state.nu))
-            _, st, om = adamw.apply_updates(ocfg, adamw.tree_map(_local, params), grads, local)
+            _, st, om = adamw.apply_updates(ocfg, adamw.tree_map(_local, params), grads, local,
+                                            norm=mesh_grad_norm(params, grads))
         opt_state = opt_state._replace(step=st.step)
     else:
         grads = adamw.tree_map(lambda p: p.grad if p.grad is not None else torch.zeros_like(p),

@@ -224,14 +224,22 @@ def check_head_shards(q, k, v, dout, degree: int, *, causal: bool = True, local=
     return res
 
 
-def sharded_attention(q, k, v, *, causal: bool) -> torch.Tensor:
+def plain_attend(q, k, v, *, causal: bool) -> torch.Tensor:
+    """:func:`sdpa` in K7's layout: q (B, H, Lq, Dh), k/v (B, Hkv, Lk, Dh)
+    -> (B, H, Lq, Dh) f32 (decode's cross-attention on a rank's heads)."""
+    return sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=causal).transpose(1, 2)
+
+
+def sharded_attention(q, k, v, *, causal: bool, attend=None) -> torch.Tensor:
     """K7 (and K7b backward) on DTensors q (B, Lq, H, Dh), k/v (B, Lk, Hkv,
     Dh) of the current mesh: q laid out batch over the DP axes and heads
     over "model" (JAX's ``act(q, "batch", None, "model", None)``), k and v
     batch over DP and replicated over "model" (the layout JAX's
     ``attn_kv_hoist`` asks for, which attention needs either way), then
     :func:`local_attention` on each rank's local tensors, so a kernel only
-    ever sees a rank's plain shard.
+    ever sees a rank's plain shard (``attend``: :func:`local_attention`'s
+    default, K7, or :func:`plain_attend` for decode's cross-attention).
     The output has q's placements. Backward, dQ keeps q's placements and dK,
     dV are partial sums over "model" (each rank's heads add to theirs)."""
     from torch.distributed.tensor import DTensor, Partial
@@ -250,8 +258,9 @@ def sharded_attention(q, k, v, *, causal: bool) -> torch.Tensor:
     h0, h1 = head_range(n_heads, deg, rank)
     if ql.shape[2] != h1 - h0:
         raise ValueError(f"rank {rank} of {deg} holds {ql.shape[2]} heads, not [{h0}, {h1})")
+    kw = {} if attend is None else {"attend": attend}
     out = local_attention(ql.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2), h0, h1,
-                          n_heads, causal=causal).transpose(1, 2)
+                          n_heads, causal=causal, **kw).transpose(1, 2)
     b, lq, h, dh = q.shape
     return DTensor.from_local(out, mesh, q.placements, shape=torch.Size((b, lq, h, dh)),
                               stride=(h * lq * dh, dh, lq * dh, 1))
@@ -260,15 +269,14 @@ def sharded_attention(q, k, v, *, causal: bool) -> torch.Tensor:
 def attention_full(p, x, positions, *, n_heads, n_kv, d_head, rope_theta=10000.0,
                    causal=True, compute_dtype=layers.DEFAULT_COMPUTE, use_rope=True):
     """Prefill self-attention through K7. Returns (out, (k, v) for caching)."""
-    b, l, _ = x.shape
     q, k, v = _qkv(p, x, n_heads, n_kv, compute_dtype)
     if use_rope:
         q = layers.apply_rope(q, positions, rope_theta)
         k = layers.apply_rope(k, positions, rope_theta)
     # (B, L, heads, Dh) -> (B, heads, L, Dh) views: K7 takes the strides
     out = kernel_attention(q, k, v, causal=causal)
-    out = out.to(compute_dtype, memory_format=torch.contiguous_format)
-    return pt.row_parallel(out.reshape(b, l, n_heads * d_head), p["wo"].to(compute_dtype)), (k, v)
+    out = merge_heads(out.to(compute_dtype, memory_format=torch.contiguous_format), n_heads)
+    return pt.row_parallel(out, p["wo"].to(compute_dtype)), (k, v)
 
 
 def cross_attention(p, x, kv_src, *, n_heads, n_kv, d_head,
@@ -276,7 +284,6 @@ def cross_attention(p, x, kv_src, *, n_heads, n_kv, d_head,
     """Encoder-decoder cross attention (no RoPE, non-causal): K7 in the
     prefill; the decode step's one query takes plain ``sdpa`` with
     ``use_kernel=False``, as dense decode does."""
-    b, l, _ = x.shape
     xc = x.to(compute_dtype)
     sc = kv_src.to(compute_dtype)
     q = pt.column_parallel(xc, p["wq"].to(compute_dtype), n_heads)
@@ -284,10 +291,12 @@ def cross_attention(p, x, kv_src, *, n_heads, n_kv, d_head,
     v = pt.column_parallel(sc, p["wv"].to(compute_dtype), n_kv)
     if use_kernel:
         out = kernel_attention(q, k, v, causal=False)
+    elif pt.is_dtensor(q):
+        out = sharded_attention(q, k, v, causal=False, attend=plain_attend)
     else:
         out = sdpa(q, k, v, causal=False)
-    out = out.to(compute_dtype, memory_format=torch.contiguous_format)
-    return pt.row_parallel(out.reshape(b, l, n_heads * d_head), p["wo"].to(compute_dtype))
+    out = merge_heads(out.to(compute_dtype, memory_format=torch.contiguous_format), n_heads)
+    return pt.row_parallel(out, p["wo"].to(compute_dtype))
 
 
 # --------------------------------------------------------------------------
@@ -347,10 +356,9 @@ class AnchoredKVCache(NamedTuple):
 def dense_cache_update(cache: DenseKVCache, k_new, v_new) -> DenseKVCache:
     """Write one token's k/v (B, 1, Hkv, Dh) at position ``length`` (per
     row; clamped to the last slot, as ``dynamic_update_slice`` clamps)."""
-    rows = torch.arange(k_new.shape[0], device=k_new.device)
     idx = cache.length.long().clamp(max=cache.k.shape[1] - 1)
-    cache.k[rows, idx] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[rows, idx] = v_new[:, 0].to(cache.v.dtype)
+    pt.write_positions(cache.k, idx, k_new[:, 0].to(cache.k.dtype))
+    pt.write_positions(cache.v, idx, v_new[:, 0].to(cache.v.dtype))
     return cache._replace(length=cache.length + 1)
 
 
@@ -358,16 +366,76 @@ def decode_attention_dense(p, x, cache: DenseKVCache, *, n_heads, n_kv, d_head,
                            rope_theta=10000.0, compute_dtype=layers.DEFAULT_COMPUTE,
                            use_rope=True):
     """One-token decode with a dense cache. x: (B, 1, d_model)."""
-    b = x.shape[0]
     q, k_new, v_new = _qkv(p, x, n_heads, n_kv, compute_dtype)
     pos = cache.length[:, None]
     if use_rope:
         q = layers.apply_rope(q, pos, rope_theta)
         k_new = layers.apply_rope(k_new, pos, rope_theta)
     cache = dense_cache_update(cache, k_new, v_new)
-    out = sdpa(q, cache.k, cache.v, causal=False, length=cache.length)
-    out = out.to(compute_dtype).reshape(b, 1, n_heads * d_head)
-    return out @ p["wo"].to(compute_dtype), cache
+    if pt.is_dtensor(cache.k):
+        out = sharded_decode_sdpa(q, cache.k, cache.v, cache.length)
+    else:
+        out = sdpa(q, cache.k, cache.v, causal=False, length=cache.length)
+    out = merge_heads(out.to(compute_dtype), n_heads)
+    return pt.row_parallel(out, p["wo"].to(compute_dtype)), cache
+
+
+def merge_heads(out, n_heads: int):
+    """(B, L, H, Dh) -> (B, L, H Dh); under a mesh with Dh whole first, and
+    the heads whole where "model" does not divide them."""
+    b, l, h, dh = out.shape
+    out = pt.whole_dims(pt.whole_dims(out, (3,)), (2,), unless_divides=n_heads)
+    return out.reshape(b, l, h * dh)
+
+
+def merge_over(out, m, den, mesh, axes):
+    """Attention parts (out (B, H, ...) normalized, softmax max m and
+    denominator den (B, H)), one a rank, over disjoint key sets, merged
+    over the mesh dimensions ``axes`` (every rank gets the whole):
+    :func:`merge_attention`'s weights against the ranks' largest m, summed
+    by three all-reduces. Returns (out, m, den) of the union; as given
+    without ``axes``."""
+    if not axes:
+        return out, m, den
+    top = pt.reduce_over(m, mesh, axes, "max")
+    w = den * torch.exp(m - top)
+    total = pt.reduce_over(w, mesh, axes)
+    num = pt.reduce_over(out * w[..., None], mesh, axes)
+    return num / torch.where(total > 0, total, 1.0)[..., None], top, total
+
+
+def sharded_decode_sdpa(q, k, v, length):
+    """Dense decode attention of q (B, 1, H, Dh) over a cache k/v (B, L,
+    Hkv, Dh) and ``length`` (B,), DTensors on the current mesh, on each
+    rank's cache shard: q laid out as the cache (its rows, its kv heads'
+    query heads, its slice of Dh, whole over the other axes); the scores
+    summed over the axes that split Dh (partial dot products, an
+    all-reduce); where the positions are split (a 500k-token cache over
+    DP), each rank's softmax over its positions merged by
+    :func:`merge_over`. Returns (B, 1, H, Dh) f32 laid out as q was made
+    (Dh split where the cache's is). DTensor's own rules would find this
+    layout themselves, at a cost of seconds an op on a 2 x 16 x 16 mesh."""
+    m = k.device_mesh
+    dims = {0: 0, 2: 2, 3: 3}  # the cache's rows, kv heads, Dh -> q's
+    ql = pt.local_as(q, k, dims)
+    kl, vl = k.to_local(), v.to_local()
+    ll = pt.local_as(length, k, {0: 0})
+    (_, lk, _, _), off = pt.local_offset(k)
+    b, lq, h, dh = ql.shape
+    hkv = kl.shape[2]
+    s = torch.einsum("blgrd,bmgd->bgrlm", ql.reshape(b, lq, hkv, h // hkv, dh).float(),
+                     kl.float())
+    s = pt.reduce_over(s, m, pt.split_axes(k, 3)) / math.sqrt(q.shape[3])
+    cols = off[1] + torch.arange(lk, device=kl.device)
+    s = torch.where((cols[None] < ll[:, None])[:, None, None, None], s, NEG_INF)
+    mx = s.amax(dim=-1)
+    p = torch.where(s > NEG_INF / 2, torch.exp(s - mx[..., None]), 0.0)
+    den = p.sum(dim=-1)
+    out = torch.einsum("bgrlm,bmgd->bgrld", p, vl.float())
+    out = out / torch.where(den > 0, den, 1.0)[..., None]
+    out, _, _ = merge_over(out, mx, den, m, pt.split_axes(k, 1))
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, lq, h, dh)
+    return pt.wrap_like(out, k, dims, q.shape)
 
 
 def _quant_blocks(xb, resid_dtype):
@@ -390,20 +458,19 @@ def anchored_cache_update(cache: AnchoredKVCache, k_new, v_new) -> AnchoredKVCac
     the tail and writes it into its block slot where the tail has just
     completed a block, and keeps the slot elsewhere (a ``where`` on
     ``length % blk == blk - 1``, as in JAX: no branch, no host read)."""
-    b, blk = cache.tail_k.shape[0], cache.block
-    rows = torch.arange(b, device=k_new.device)
+    blk = cache.block
     length = cache.length.long()
     pos_in_blk = length % blk
     blk_idx = (length // blk).clamp(max=cache.k_resid.shape[1] - 1)
-    cache.tail_k[rows, pos_in_blk] = k_new[:, 0].to(cache.tail_k.dtype)
-    cache.tail_v[rows, pos_in_blk] = v_new[:, 0].to(cache.tail_v.dtype)
-    full = (pos_in_blk == blk - 1)[:, None, None, None]
+    pt.write_positions(cache.tail_k, pos_in_blk, k_new[:, 0].to(cache.tail_k.dtype))
+    pt.write_positions(cache.tail_v, pos_in_blk, v_new[:, 0].to(cache.tail_v.dtype))
+    full = pos_in_blk == blk - 1
     kq = _quantize_block(cache.tail_k, cache.k_resid.dtype)
     vq = _quantize_block(cache.tail_v, cache.v_resid.dtype)
     dsts = (cache.k_anchor, cache.k_scale, cache.k_resid,
             cache.v_anchor, cache.v_scale, cache.v_resid)
     for dst, src in zip(dsts, kq + vq):
-        dst[rows, blk_idx] = torch.where(full, src, dst[rows, blk_idx])
+        pt.write_positions(dst, blk_idx, src, keep=full)
     return cache._replace(length=cache.length + 1)
 
 
@@ -461,21 +528,23 @@ def decode_attention_anchored(p, x, cache: AnchoredKVCache, *, n_heads, n_kv, d_
                               use_rope=True):
     """One-token decode over the RCLL-KV cache: K6 over the closed blocks,
     plain torch over the open tail, merged by (m, l)."""
-    b = x.shape[0]
     q, k_new, v_new = _qkv(p, x, n_heads, n_kv, compute_dtype)
     pos = cache.length[:, None]
     if use_rope:
         q = layers.apply_rope(q, pos, rope_theta)
         k_new = layers.apply_rope(k_new, pos, rope_theta)
     cache = anchored_cache_update(cache, k_new.float(), v_new.float())
-    out = anchored_attention(q, cache).to(compute_dtype).reshape(b, 1, n_heads * d_head)
-    return out @ p["wo"].to(compute_dtype), cache
+    out = anchored_attention(q, cache).to(compute_dtype)
+    return pt.row_parallel(merge_heads(out[:, None], n_heads), p["wo"].to(compute_dtype)), cache
 
 
 def anchored_attention(q, cache: AnchoredKVCache) -> torch.Tensor:
     """Attention of q (B, 1, H, Dh) over the cache's ``length`` tokens ->
     (B, H, Dh) f32: K6 over the closed blocks [0, length - length % blk),
-    the fp32 tail over the rest, merged by their (m, l)."""
+    the fp32 tail over the rest, merged by their (m, l). Under a mesh,
+    :func:`sharded_anchored_attention`."""
+    if pt.is_dtensor(cache.k_resid):
+        return sharded_anchored_attention(q, cache)
     closed_len = (cache.length // cache.block) * cache.block
     out_c, m_c, l_c = k6.rcll_kv_decode(
         q[:, 0].float(), _heads_major(cache.k_resid), _heads_major(cache.k_anchor),
@@ -484,3 +553,37 @@ def anchored_attention(q, cache: AnchoredKVCache) -> torch.Tensor:
     out_t, m_t, l_t = tail_attention(q, cache.tail_k, cache.tail_v, cache.length - closed_len)
     return merge_attention(out_c, m_c, l_c, out_t, m_t, l_t)
 
+
+
+def sharded_anchored_attention(q, cache: AnchoredKVCache) -> torch.Tensor:
+    """:func:`anchored_attention` on DTensors of the current mesh, each
+    rank on its own shard: K6 on its rows' blocks (JAX's cache layout puts
+    the blocks over "model" where the kv heads do not divide it) with the
+    closed length clipped to them, the tail attention on its tail rows,
+    each part merged over the ranks that split it (:func:`merge_over`),
+    then the two. q is whole over every axis but the cache's rows'. A
+    cache whose kv heads or Dh are split raises (JAX's layouts split the
+    blocks first)."""
+    kr = cache.k_resid
+    m = kr.device_mesh
+    for t in (kr, cache.tail_k):
+        if pt.split_axes(t, t.dim() - 2) or pt.split_axes(t, t.dim() - 1):
+            raise NotImplementedError(f"an anchored cache with its kv heads or Dh split "
+                                      f"({t.placements})")
+    ql = pt.local_as(q, kr, {0: 0})[:, 0].float()
+    ll = pt.local_as(cache.length, kr, {0: 0})
+    blk = cache.block
+    closed = (ll // blk) * blk
+    (_, nb, _, _, _), boff = pt.local_offset(kr)
+    seen = (closed - boff[1] * blk).clamp(0, nb * blk).to(torch.int32)
+    loc = [t.to_local() for t in (cache.k_resid, cache.k_anchor, cache.k_scale, cache.v_resid,
+                                  cache.v_anchor, cache.v_scale)]
+    parts = k6.rcll_kv_decode(ql, *(_heads_major(t) for t in loc), seen, return_stats=True)
+    out_c, m_c, l_c = merge_over(*parts, m, pt.split_axes(kr, 1))
+    (_, tl, _, _), toff = pt.local_offset(cache.tail_k)
+    n_tail = (ll - closed - toff[1]).clamp(0, tl)
+    out_t, m_t, l_t = tail_attention(ql[:, None], cache.tail_k.to_local(),
+                                     cache.tail_v.to_local(), n_tail)
+    out_t, m_t, l_t = merge_over(out_t, m_t, l_t, m, pt.split_axes(cache.tail_k, 1))
+    out = merge_attention(out_c, m_c, l_c, out_t, m_t, l_t)
+    return pt.wrap_like(out, kr, {0: 0}, (q.shape[0], q.shape[2], q.shape[3]))

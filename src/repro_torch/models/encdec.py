@@ -14,7 +14,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers
@@ -149,11 +148,10 @@ def prefill(params, tokens, cfg, max_len: int, *, frames=None):
     b, l = tokens.shape
     enc_out = encode(params, frames, cfg)
     lg, (k, v) = decoder_forward(params, tokens, enc_out, cfg, return_cache=True)
-    pad = (0, 0, 0, 0, 0, max_len - l)  # along the sequence axis
     length = torch.full((cfg.n_layers, b), l, dtype=torch.int32, device=tokens.device)
     return lg, EncDecCache(
-        self_kv=attn_lib.DenseKVCache(k=F.pad(k.to(torch.bfloat16), pad),
-                                      v=F.pad(v.to(torch.bfloat16), pad), length=length),
+        self_kv=attn_lib.DenseKVCache(k=tf.pad_seq(k, max_len), v=tf.pad_seq(v, max_len),
+                                      length=length),
         enc_out=enc_out.to(torch.bfloat16))
 
 
@@ -166,7 +164,9 @@ def decode_step(params, tokens, cache: EncDecCache, cfg):
     max_len = cache.self_kv.k.shape[2]
     pos = cache.self_kv.length[0].long().clamp(0, max_len - 1)  # all layers share length
     pe = layers.sinusoidal_positions(max_len, cfg.d_model, h.device)
-    h = h + pe[pos][:, None, :].to(h.dtype)
+    pe = pt.on_local(lambda t, i: t[i], (pe, pos), ((), ("batch",)), (("batch", None),),
+                     ((pos.shape[0], cfg.d_model),))  # each rank's rows
+    h = h + pe[:, None, :].to(h.dtype)
     lengths = []
     for i in range(cfg.n_layers):
         p_l = tf.layer_params(params, i)

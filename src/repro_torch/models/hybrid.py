@@ -16,7 +16,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, mamba2
@@ -71,7 +70,7 @@ def _shared_forward(p, h, emb0, positions, cfg):
         d_head=_shared_head_dim(cfg), rope_theta=cfg.rope_theta)
     x = x + out
     x = x + layers.swiglu(p["mlp"], layers.rms_norm(p["ln2"], x))
-    return x.to(h.dtype) @ p["w_down"].to(h.dtype), (k, v)
+    return pt.replica_product(x.to(h.dtype), p["w_down"].to(h.dtype)), (k, v)
 
 
 def _shared_decode(p, h, emb0, cache_s, cfg):
@@ -81,7 +80,7 @@ def _shared_decode(p, h, emb0, cache_s, cfg):
         d_head=_shared_head_dim(cfg), rope_theta=cfg.rope_theta)
     x = x + out
     x = x + layers.swiglu(p["mlp"], layers.rms_norm(p["ln2"], x))
-    return x.to(h.dtype) @ p["w_down"].to(h.dtype), new_cache
+    return pt.replica_product(x.to(h.dtype), p["w_down"].to(h.dtype)), new_cache
 
 
 class HybridCache(NamedTuple):
@@ -150,10 +149,9 @@ def init_cache(cfg, batch: int, max_len: int, device=None) -> HybridCache:
 def prefill(params, tokens, cfg, max_len: int, *, patch_embeds=None):
     b, l = tokens.shape
     lg, (m_cache, (k, v)), _ = forward(params, tokens, cfg, return_cache=True)
-    pad = (0, 0, 0, 0, 0, max_len - l)  # along the sequence axis
     length = torch.full((n_sites(cfg), b), l, dtype=torch.int32, device=tokens.device)
     return lg, HybridCache(mamba=m_cache, shared=attn_lib.DenseKVCache(
-        k=F.pad(k.to(torch.bfloat16), pad), v=F.pad(v.to(torch.bfloat16), pad), length=length))
+        k=tf.pad_seq(k, max_len), v=tf.pad_seq(v, max_len), length=length))
 
 
 def decode_step(params, tokens, cache: HybridCache, cfg):

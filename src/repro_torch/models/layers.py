@@ -184,7 +184,8 @@ def embed(p: dict, tokens: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch
 def logits(p: dict, x: torch.Tensor, compute_dtype=DEFAULT_COMPUTE) -> torch.Tensor:
     w = p.get("unembed", p["embed"]).to(compute_dtype)
     xc = pt.seq_whole(x).to(compute_dtype)
-    lg = pt.column_parallel(xc, w.T) if pt.vocab_split(w.shape[0]) else xc @ w.T
+    lg = (pt.column_parallel(xc, w.T) if pt.vocab_split(w.shape[0])
+          else pt.replica_product(xc, w.T))
     return pt.act_vocab(lg).float()
 
 

@@ -209,30 +209,54 @@ def mamba2_forward(p, x, dims: SSMDims, *, chunk=128, compute_dtype=layers.DEFAU
     return out, Mamba2Cache(state=state, conv_buf=conv_tail)
 
 
-def mamba2_decode(p, x, cache: Mamba2Cache, dims: SSMDims,
-                  compute_dtype=layers.DEFAULT_COMPUTE):
-    """Single-token recurrent step. x: (B, 1, d_model). Writes the new
-    state and conv history into ``cache``'s storage and returns it."""
-    bsz = x.shape[0]
-    proj = x.to(compute_dtype) @ p["in_proj"].to(compute_dtype)
-    z, xbc, dt = _split_proj(proj[:, 0], dims)  # (B, *)
-    w = p["conv_w"].float()
-    hist = torch.cat([cache.conv_buf, xbc.float()[:, None]], dim=1)
-    conv = torch.einsum("btc,tc->bc", hist, w) + p["conv_bias"]
+def _recurrent_step(proj, conv_buf, state, conv_w, conv_bias, dt_bias, a_log, d_skip, *,
+                    dims: SSMDims):
+    """One token's conv and SSM recurrence on whole rows: proj (B, d_in_proj)
+    -> (y (B, d_inner) f32, before the gate's norm, the new state, the new
+    conv history)."""
+    bsz = proj.shape[0]
+    z, xbc, dt = _split_proj(proj, dims)  # (B, *)
+    hist = torch.cat([conv_buf, xbc.float()[:, None]], dim=1)
+    conv = torch.einsum("btc,tc->bc", hist, conv_w.float()) + conv_bias
     xs, Bc, Cc = _split_xbc(F.silu(conv), dims)
     xh = xs.reshape(bsz, dims.n_heads, dims.head_dim)
     rep = dims.n_heads // dims.n_groups
     Bm = Bc.reshape(bsz, dims.n_groups, dims.d_state).repeat_interleave(rep, dim=1)
     Cm = Cc.reshape(bsz, dims.n_groups, dims.d_state).repeat_interleave(rep, dim=1)
-    dt_ = F.softplus(dt.float() + p["dt_bias"])  # (B, h)
-    a = -torch.exp(p["a_log"].float())
+    dt_ = F.softplus(dt.float() + dt_bias)  # (B, h)
+    a = -torch.exp(a_log.float())
     decay = torch.exp(dt_ * a[None, :])
-    state = (cache.state * decay[..., None, None]
+    state = (state * decay[..., None, None]
              + torch.einsum("bh,bhp,bhn->bhpn", dt_, xh, Bm))
     y = torch.einsum("bhpn,bhn->bhp", state, Cm)
-    y = y + xh * p["d_skip"][None, :, None]
-    y = y.reshape(bsz, dims.d_inner) * F.silu(z.float())
+    y = y + xh * d_skip[None, :, None]
+    return y.reshape(bsz, dims.d_inner) * F.silu(z.float()), state, hist[:, 1:]
+
+
+def mamba2_decode(p, x, cache: Mamba2Cache, dims: SSMDims,
+                  compute_dtype=layers.DEFAULT_COMPUTE):
+    """Single-token recurrent step. x: (B, 1, d_model). Writes the new
+    state and conv history into ``cache``'s storage and returns it. Under
+    a mesh, as the forward: the projection split over "model", then each
+    rank's rows run the conv and the recurrence whole
+    (``partitioning.on_local``: the state and conv history are gathered
+    over the axes JAX's cache layout splits them on, and each rank writes
+    its shard back)."""
+    bsz = x.shape[0]
+    proj = pt.column_parallel(x.to(compute_dtype), p["in_proj"].to(compute_dtype))[:, 0]
+    weights = (p["conv_w"], p["conv_bias"], p["dt_bias"], p["a_log"], p["d_skip"])
+    if pt.is_dtensor(proj):
+        rows = ("batch", None)
+        y, state, conv_buf = pt.on_local(
+            lambda *a: _recurrent_step(*a, dims=dims),
+            (pt.act(proj, "batch", "model"), cache.conv_buf, cache.state, *weights),
+            (rows, ("batch", None, None), ("batch", None, None, None)) + ((),) * 5,
+            (rows, ("batch", None, None, None), ("batch", None, None)),
+            ((bsz, dims.d_inner), tuple(cache.state.shape), tuple(cache.conv_buf.shape)))
+    else:
+        y, state, conv_buf = _recurrent_step(proj, cache.conv_buf, cache.state, *weights,
+                                             dims=dims)
     y = layers.rms_norm(p["out_norm"], y.to(compute_dtype))
     cache.state.copy_(state)
-    cache.conv_buf.copy_(hist[:, 1:])
-    return (y @ p["out_proj"].to(compute_dtype))[:, None], cache
+    cache.conv_buf.copy_(conv_buf)
+    return pt.row_parallel(y, p["out_proj"].to(compute_dtype))[:, None], cache

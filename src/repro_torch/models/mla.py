@@ -62,14 +62,14 @@ class MLACache(NamedTuple):
 
 
 def _project_q(p, x, dims: MLADims, compute_dtype):
-    cq = x.to(compute_dtype) @ p["wq_a"].to(compute_dtype)
+    cq = pt.replica_product(x.to(compute_dtype), p["wq_a"].to(compute_dtype))
     cq = layers.rms_norm(p["q_norm"], cq)
     q = pt.column_parallel(cq, p["wq_b"].to(compute_dtype), dims.n_heads)
     return q[..., :dims.qk_nope], q[..., dims.qk_nope:]
 
 
 def _project_kv_latent(p, x, dims: MLADims, compute_dtype):
-    ckv = x.to(compute_dtype) @ p["wkv_a"].to(compute_dtype)
+    ckv = pt.replica_product(x.to(compute_dtype), p["wkv_a"].to(compute_dtype))
     c_kv, k_rope = ckv[..., :dims.kv_lora], ckv[..., dims.kv_lora:]
     return layers.rms_norm(p["kv_norm"], c_kv), k_rope
 
@@ -119,7 +119,7 @@ def mla_full(p, x, positions, dims: MLADims, *, rope_theta=10000.0,
     out = pt.on_local(lambda *a: _attend(*a, scale=1.0 / math.sqrt(dn + dr)),
                       (q_nope, q_rope, k_nope, v, k_rope), (heads,) * 4 + (("batch", None, None),),
                       (heads,), ((b, l, h, dv),), partial={4: ("model",)})
-    out = out.to(compute_dtype).reshape(b, l, h * dv)
+    out = pt.whole_dims(out.to(compute_dtype), (2,), unless_divides=h).reshape(b, l, h * dv)
     return pt.row_parallel(out, p["wo"].to(compute_dtype)), (c_kv, k_rope)
 
 
@@ -139,22 +139,75 @@ def mla_decode(p, x, cache: MLACache, dims: MLADims, *, rope_theta=10000.0,
     c_new, kr_new = _project_kv_latent(p, x, dims, compute_dtype)
     kr_new = layers.apply_rope(kr_new[..., None, :], pos, rope_theta)[..., 0, :]
 
-    rows = torch.arange(b, device=x.device)
     idx = cache.length.long().clamp(max=cache.c_kv.shape[1] - 1)
-    cache.c_kv[rows, idx] = c_new[:, 0].to(cache.c_kv.dtype)
-    cache.k_rope[rows, idx] = kr_new[:, 0].to(cache.k_rope.dtype)
+    pt.write_positions(cache.c_kv, idx, c_new[:, 0].to(cache.c_kv.dtype))
+    pt.write_positions(cache.k_rope, idx, kr_new[:, 0].to(cache.k_rope.dtype))
     cache = cache._replace(length=cache.length + 1)
 
-    wkv_b = p["wkv_b"].to(compute_dtype).reshape(dims.kv_lora, h, dn + dv).float()
-    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]  # (kvl, H, dn/dv)
-    q_lat = torch.einsum("bhd,chd->bhc", q_nope[:, 0].float(), w_uk)  # absorbed
-    c_kv = cache.c_kv.float()
-    s = (torch.einsum("bhc,btc->bht", q_lat, c_kv)
-         + torch.einsum("bhd,btd->bht", q_rope[:, 0].float(), cache.k_rope.float())
-         ) / math.sqrt(dn + dr)
-    t = torch.arange(c_kv.shape[1], device=x.device)[None, None, :]
-    s = torch.where(t < cache.length[:, None, None], s, -1e30)
-    ctx = torch.einsum("bht,btc->bhc", torch.softmax(s, dim=-1), c_kv)
-    out = torch.einsum("bhc,chd->bhd", ctx, w_uv)
+    if pt.is_dtensor(cache.c_kv):
+        out = _sharded_absorbed(q_nope, q_rope, cache, p["wkv_b"].to(compute_dtype), dims)
+    else:
+        out = _absorbed(q_nope[:, 0].float(), q_rope[:, 0].float(), cache.c_kv.float(),
+                        cache.k_rope.float(), cache.length, p["wkv_b"].to(compute_dtype),
+                        dims)
     out = out.to(compute_dtype).reshape(b, 1, h * dv)
-    return out @ p["wo"].to(compute_dtype), cache
+    return pt.row_parallel(out, p["wo"].to(compute_dtype)), cache
+
+
+def _absorbed(q_nope, q_rope, c_kv, k_rope, length, wkv_b, dims: MLADims,
+              reduce=lambda t, which: t, t0: int = 0, merge=None):
+    """The absorbed attention of q_nope (B, H, dn), q_rope (B, H, dr)
+    over the latent cache c_kv (B, T, c), k_rope (B, T, dr) (fp32), the
+    first ``length`` (B,) positions, with ``wkv_b`` (c, H (dn + dv)) ->
+    (B, H, dv) f32. A mesh run's: ``reduce(t, "c" | "rope")`` sums a
+    partial product over the ranks that split that axis; the cache's
+    positions start at ``t0``, and where ``merge`` is given (the positions
+    split over ranks) each rank's softmax part is merged by it
+    (``attention.merge_over``)."""
+    h, dn, dv = dims.n_heads, dims.qk_nope, dims.v_head
+    wkv_b = wkv_b.reshape(wkv_b.shape[0], h, dn + dv).float()
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]  # (kvl, H, dn/dv)
+    q_lat = torch.einsum("bhd,chd->bhc", q_nope, w_uk)  # absorbed
+    s = (reduce(torch.einsum("bhc,btc->bht", q_lat, c_kv), "c")
+         + reduce(torch.einsum("bhd,btd->bht", q_rope, k_rope), "rope")
+         ) / math.sqrt(dn + dims.qk_rope)
+    t = t0 + torch.arange(c_kv.shape[1], device=c_kv.device)[None, None, :]
+    s = torch.where(t < length[:, None, None], s, -1e30)
+    if merge is None:
+        ctx = torch.einsum("bht,btc->bhc", torch.softmax(s, dim=-1), c_kv)
+    else:
+        mx = s.amax(dim=-1)
+        p = torch.where(s > -5e29, torch.exp(s - mx[..., None]), 0.0)
+        den = p.sum(dim=-1)
+        ctx = torch.einsum("bht,btc->bhc", p, c_kv) / torch.where(den > 0, den, 1.0)[..., None]
+        ctx, _, _ = merge(ctx, mx, den)
+    return reduce(torch.einsum("bhc,chd->bhd", ctx, w_uv), "c")
+
+
+def _sharded_absorbed(q_nope, q_rope, cache: MLACache, wkv_b, dims: MLADims):
+    """:func:`_absorbed` on each rank's cache shard (DTensors of the
+    current mesh; JAX's layouts split the rows over DP and the latent and
+    rope axes over "model", or, where the rows do not divide, the
+    positions): ``wkv_b``'s rows of the rank's latent slice, q's rows and
+    its rope slice; the dot products over a split axis summed over its
+    ranks, and split positions' softmax parts merged (all-reduces).
+    Returns (B, H, dv) f32 split by rows only."""
+    from repro_torch.models.attention import merge_over
+
+    c_kv, k_rope = cache.c_kv, cache.k_rope
+    mesh = c_kv.device_mesh
+    pos = pt.split_axes(c_kv, 1)
+    if pos != pt.split_axes(k_rope, 1):
+        raise NotImplementedError(f"an MLA cache whose latent and rope positions are split "
+                                  f"apart ({c_kv.placements}, {k_rope.placements})")
+    axes = {"c": pt.split_axes(c_kv, 2), "rope": pt.split_axes(k_rope, 2)}
+    out = _absorbed(pt.local_as(q_nope, c_kv, {0: 0})[:, 0].float(),
+                    pt.local_as(q_rope, k_rope, {0: 0, 2: 3})[:, 0].float(),
+                    c_kv.to_local().float(), k_rope.to_local().float(),
+                    pt.local_as(cache.length, c_kv, {0: 0}),
+                    pt.local_as(wkv_b, c_kv, {2: 0}), dims,
+                    reduce=lambda t, which: pt.reduce_over(t, mesh, axes[which]),
+                    t0=pt.local_offset(c_kv)[1][1],
+                    merge=(lambda *a: merge_over(*a, mesh, pos)) if pos else None)
+    b, h = q_nope.shape[0], q_nope.shape[2]
+    return pt.wrap_like(out, c_kv, {0: 0}, (b, h, dims.v_head))

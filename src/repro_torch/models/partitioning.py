@@ -184,10 +184,10 @@ def constrain(x: Array, spec: PartitionSpec | None) -> Array:
     m = current_mesh()
     if m is None or spec is None:
         return x
-    return _redistribute(x, m, placements(m, spec, x.dim()))
+    return redistribute_to(x, m, placements(m, spec, x.dim()))
 
 
-def _redistribute(x, m, target) -> Array:
+def redistribute_to(x, m, target) -> Array:
     """``x`` on ``m`` with ``target`` placements; ``x`` itself where it has
     them, or differs from them only on mesh dimensions of size 1, where
     every placement but ``Partial`` holds the whole tensor (no autograd
@@ -230,7 +230,7 @@ def contract_whole(x: Array) -> Array:
     d = x.dim() - 1
     keep = [Replicate() if p.is_partial() or (isinstance(p, Shard) and p.dim == d) else p
             for p in _placements_of(x, m)]
-    return _redistribute(x, m, keep)
+    return redistribute_to(x, m, keep)
 
 
 def column_parallel(x: Array, w: Array, heads: int = 0) -> Array:
@@ -252,6 +252,8 @@ def column_parallel(x: Array, w: Array, heads: int = 0) -> Array:
         return out.reshape(*out.shape[:-1], *unit) if heads else out
     rows = ("batch",) + (None,) * (x.dim() - 1)
     w_spec = (None, "model") + (None,) * (len(unit) - 1)
+    if heads:
+        w = whole_dims(w, (1,), unless_divides=heads)
 
     def local(xl, wl):
         out = xl @ wl.reshape(wl.shape[0], math.prod(wl.shape[1:]))
@@ -260,6 +262,24 @@ def column_parallel(x: Array, w: Array, heads: int = 0) -> Array:
     return on_local(local, (x, w.reshape(w.shape[0], *unit)), (rows, w_spec),
                     (rows[:-1] + w_spec[1:],), (tuple(x.shape[:-1]) + unit,),
                     partial={0: ("model",), 1: ("batch",)})
+
+
+def whole_dims(x: Array, dims: tuple, unless_divides: int = 0) -> Array:
+    """DTensor ``x`` with the mesh axes that shard any of ``dims``
+    replicated (an all-gather over them), its other placements kept;
+    with ``unless_divides`` only those axes whose size does not divide it.
+    Before a reshape that splits a sharded dimension into (n, rest): DTensor
+    refuses the view unless n divides over the axis (``torch.chunk``'s
+    shards of the flat dimension would cut the n units), where GSPMD pads."""
+    m = current_mesh()
+    if m is None or not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    keep = [Replicate() if isinstance(p, Shard) and p.dim in dims
+            and not (unless_divides and unless_divides % m.size(i) == 0) else p
+            for i, p in enumerate(x.placements)]
+    return redistribute_to(x, m, keep)
 
 
 def vocab_split(vocab: int) -> bool:
@@ -279,9 +299,123 @@ def row_parallel(x: Array, w: Array) -> Array:
     every output in the unsharded run's order."""
     if current_mesh() is None:
         return x @ w
+    return replica_product(contract_whole(x), w)
+
+
+def replica_product(x: Array, w: Array) -> Array:
+    """``x @ w`` with ``w`` whole on every rank: under a mesh each rank
+    multiplies its own rows (batch over DP, the rest of x whole) by its
+    whole copy of ``w`` (gathered where FSDP or TP split it), so the
+    product is split over DP only. The low-rank and small products whose
+    weight JAX's rules leave unsplit on "model", or whose output no hint
+    splits: MLA's ``wq_a``/``wkv_a``, vlm's ``w_patch``, an unembedding
+    whose vocab "model" does not divide, the hybrid's shared ``w_down``;
+    and :func:`row_parallel`'s. DTensor's own matmul rule would plan the
+    backward's weight gradient over a batch flattened into rows, which
+    took minutes a product on a 2 x 16 x 16 mesh."""
+    if current_mesh() is None:
+        return x @ w
     rows = ("batch",) + (None,) * (x.dim() - 1)
-    return on_local(lambda xl, wl: xl @ wl, (contract_whole(x), w), (rows, ()), (rows,),
+    return on_local(lambda xl, wl: xl @ wl, (x, w), (rows, ()), (rows,),
                     (tuple(x.shape[:-1]) + (w.shape[-1],),), partial={1: ("batch",)})
+
+
+def write_positions(dst: Array, idx: Array, val: Array, keep: Array | None = None) -> None:
+    """``dst[b, idx[b]] = val[b]`` for every row b, IN PLACE: one position a
+    row of ``dst`` (B, L, ...) from ``val`` (B, ...) at ``idx`` (B,) (the
+    decode caches' writes); with ``keep`` (B,) bool, rows where it is false
+    keep what they hold. Under a mesh ``dst`` is a DTensor and each rank
+    writes its own shard (DTensor has no in-place rule for ``index_put_``
+    on a sharded tensor): ``val`` is laid out as ``dst`` is (its rows and
+    trailing dims; whole over the axes that split ``dst``'s positions),
+    ``idx`` and ``keep`` by ``dst``'s rows, and where ``dst``'s positions
+    are split (a 500k-token cache over DP, an anchored cache's blocks over
+    "model") only the rank whose shard holds ``idx[b]`` writes it (a
+    ``where`` on the others: no branch, no host read)."""
+    if current_mesh() is None or not is_dtensor(dst):
+        rows = torch.arange(dst.shape[0], device=dst.device)
+        if keep is not None:
+            val = torch.where(keep.reshape(-1, *([1] * (val.dim() - 1))), val, dst[rows, idx])
+        dst[rows, idx] = val
+        return
+    shape, off = local_offset(dst)
+    vl = local_as(val, dst, {d: d - (d > 1) for d in range(dst.dim()) if d != 1})
+    il = local_as(idx, dst, {0: 0}).long() - off[1]
+    inside = (il >= 0) & (il < shape[1])
+    if keep is not None:
+        inside = inside & local_as(keep, dst, {0: 0})
+    dl = dst.to_local()
+    rows = torch.arange(dl.shape[0], device=dl.device)
+    il = il.clamp(0, shape[1] - 1)
+    dl[rows, il] = torch.where(inside.reshape(-1, *([1] * (vl.dim() - 1))), vl.to(dl.dtype),
+                               dl[rows, il])
+
+
+def split_axes(x: Array, dim: int) -> list:
+    """The mesh dimensions (indices) of size > 1 that shard dimension
+    ``dim`` of DTensor ``x``, in mesh order."""
+    from torch.distributed.tensor import Shard
+
+    m = x.device_mesh
+    return [i for i, p in enumerate(x.placements)
+            if isinstance(p, Shard) and p.dim == dim and m.size(i) > 1]
+
+
+def local_offset(x: Array) -> tuple:
+    """(local shape, global offset) of this rank's shard of DTensor ``x``."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    return compute_local_shape_and_global_offset(x.shape, x.device_mesh, x.placements)
+
+
+def local_as(x: Array, like: Array, dims: dict) -> torch.Tensor:
+    """This rank's tensor of DTensor (or replicated plain tensor) ``x`` laid
+    out to match DTensor ``like``: ``dims`` maps a dimension of ``like`` to
+    the dimension of ``x`` that goes with it; each mesh axis that shards
+    one of those dimensions of ``like`` shards ``x``'s there, and ``x`` is
+    whole over every other axis."""
+    m = like.device_mesh
+    if not is_dtensor(x):
+        x = from_replica(x, m)
+    return redistribute_to(x, m, _matched(like, dims)).to_local()
+
+
+def _matched(like: Array, dims: dict) -> list:
+    """Placements that shard dimension ``dims[d]`` wherever ``like``'s
+    shard its dimension d, and replicate everywhere else."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(dims[p.dim]) if isinstance(p, Shard) and p.dim in dims else Replicate()
+            for p in like.placements]
+
+
+def reduce_over(t: torch.Tensor, m, axes, op: str = "sum") -> torch.Tensor:
+    """Plain tensor ``t`` (each rank's part) reduced (``op`` "sum" or
+    "max") over the mesh dimensions ``axes`` of ``m``: one functional
+    all-reduce a dimension of size > 1, so the dry run's counter sees each."""
+    from torch.distributed import _functional_collectives as funcol
+
+    for i in axes:
+        if m.size(i) > 1:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, (m, i)))
+    return t
+
+
+def wrap_like(t: torch.Tensor, like: Array, dims: dict, shape) -> Array:
+    """Plain tensor ``t``, this rank's part of a tensor of global ``shape``,
+    as a DTensor on ``like``'s mesh, sharded as :func:`local_as` lays one
+    out (``dims`` as there)."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t, like.device_mesh, _matched(like, dims), run_check=False,
+                              shape=torch.Size(shape), stride=_global_stride(t, shape))
+
+
+def from_replica(t: torch.Tensor, m):
+    """A plain tensor that is the same on every rank as a replicated DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, m, [Replicate()] * m.ndim, run_check=False)
 
 
 def _placements_of(x, m) -> tuple:
@@ -422,7 +556,7 @@ def on_local(fn, args: tuple, specs: tuple, out_specs: tuple, out_shapes: tuple,
                                 "is unknown")
             local.append(a)
             continue
-        a = _redistribute(a, m, placements(m, act_spec(*spec), a.dim()))
+        a = redistribute_to(a, m, placements(m, act_spec(*spec), a.dim()))
         axes = [names.index(n) for e in act_spec(*partial.get(i, ())) if e is not None
                 for n in (e if isinstance(e, tuple) else (e,)) if n in names]
         grad = [Partial() if j in axes and m.size(j) > 1 else p

@@ -379,7 +379,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *, patch_embeds
     b, l = tokens.shape
     h = layers.embed(params["embed_tokens"], tokens)
     if cfg.family == "vlm" and patch_embeds is not None:
-        pe = patch_embeds.to(h.dtype) @ params["w_patch"].to(h.dtype)
+        pe = pt.replica_product(patch_embeds.to(h.dtype), params["w_patch"].to(h.dtype))
         h = torch.cat([pe, h[:, cfg.n_patches:]], dim=1)
     positions = torch.arange(l, device=tokens.device)[None].expand(b, l)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -448,9 +448,14 @@ def decode_step(params: dict, tokens: torch.Tensor, cache, cfg: ArchConfig):
     return lg, (cache._replace(length=torch.stack(lengths)) if lengths else cache)
 
 
-def _pad_seq(t: torch.Tensor, max_len: int) -> torch.Tensor:
-    """(n_layers, B, L, ...) -> bf16, zero-padded to max_len along L."""
-    return F.pad(t.to(torch.bfloat16), (0, 0) * (t.dim() - 3) + (0, max_len - t.shape[2]))
+def pad_seq(t: torch.Tensor, max_len: int) -> torch.Tensor:
+    """(n_layers, B, L, ...) -> bf16, zero-padded to max_len along L (no
+    pad where L is max_len: DTensor in torch 2.11 refuses even a pad of
+    nothing)."""
+    t = t.to(torch.bfloat16)
+    if t.shape[2] == max_len:
+        return t
+    return F.pad(t, (0, 0) * (t.dim() - 3) + (0, max_len - t.shape[2]))
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, max_len: int, *,
@@ -464,9 +469,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, max_len: int, *
     stacked_length = length.expand(cfg.n_layers, b).clone()
     if cfg.family == "mla_moe":
         c_kv, k_rope = caches  # (n_layers, B, L, *)
-        return lg, mla.MLACache(c_kv=_pad_seq(c_kv, max_len), k_rope=_pad_seq(k_rope, max_len),
+        return lg, mla.MLACache(c_kv=pad_seq(c_kv, max_len), k_rope=pad_seq(k_rope, max_len),
                                 length=stacked_length)
-    k, v = (_pad_seq(t, max_len) for t in caches)  # (n_layers, B, max_len, Hkv, Dh)
+    k, v = (pad_seq(t, max_len) for t in caches)  # (n_layers, B, max_len, Hkv, Dh)
     if cfg.kv_mode == "anchored":
         per_layer = [attn_lib.anchored_cache_from_prefill(k[i], v[i], length, block=cfg.kv_block)
                      for i in range(cfg.n_layers)]

@@ -84,17 +84,25 @@ def _chunks(t: torch.Tensor):
         yield flat[i:i + CHUNK]
 
 
+def square_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the squares of ``x``'s elements, fp32, CHUNK at a time."""
+    return sum(torch.sum(torch.square(c.float())) for c in _chunks(x))
+
+
 def global_norm(tree) -> torch.Tensor:
     total = 0
     for x in tree_leaves(tree):
-        total = total + sum(torch.sum(torch.square(c.float())) for c in _chunks(x))
+        total = total + square_sum(x)
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm: torch.Tensor | None = None):
     """Scale ``grads`` IN PLACE to global norm at most ``max_norm``;
-    returns (grads, the norm before scaling)."""
-    norm = global_norm(grads)
+    returns (grads, the norm before scaling). ``norm``, where given, is
+    that norm (a mesh run's, over every rank's shards), else
+    :func:`global_norm` of ``grads``."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale)
@@ -106,14 +114,17 @@ def _decay_mask(path_leaf) -> bool:
     return path_leaf.ndim >= 2
 
 
-def apply_updates(cfg: OptConfig, params, grads, state: OptState):
+def apply_updates(cfg: OptConfig, params, grads, state: OptState, norm=None):
     """One AdamW step IN PLACE. Returns (params, new state, metrics):
     ``params``, ``state.mu`` and ``state.nu`` are the tensors passed in,
     updated; ``grads`` (fp32, or cast to fp32 first) are scaled by the
-    clip. The parameters' gradients do not flow through this."""
+    clip. The parameters' gradients do not flow through this. ``norm``:
+    the gradients' global norm where the caller computed it (a mesh run
+    hands each rank's shards here, whose own norm is not the global one;
+    ``launch.train.mesh_grad_norm``)."""
     with torch.no_grad():
         grads = tree_map(lambda g: g if g.dtype == torch.float32 else g.float(), grads)
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
         step = state.step + 1
         lr = schedule(cfg, step)
         b1, b2 = cfg.b1, cfg.b2

@@ -162,7 +162,9 @@ class LocalFlops(TorchDispatchMode):
     tensors (``torch.utils.flop_counter``'s formulas), by aten op: an op on
     DTensors is passed on to DTensor (``NotImplemented``), whose ops on each
     rank's local tensors then come back through the mode, so the count is
-    the rank's own work, collectives aside."""
+    the rank's own work, collectives aside. The ops DTensor runs on fake
+    global shapes to propagate its layouts (once per layout: they hit a
+    cache after) are not counted."""
 
     def __init__(self):
         super().__init__()
@@ -176,6 +178,8 @@ class LocalFlops(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **kwargs)
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return out  # DTensor's shape propagation on fake global shapes
         packet = func._overloadpacket
         if packet in flop_registry:
             n = flop_registry[packet](*args, **kwargs, out_val=out)
@@ -329,8 +333,187 @@ def case_flops(rank: int, archs: list, run: dict) -> dict:
     return {a: (step_flops(a, (2, 2), run), step_flops(a, (), run)) for a in archs}
 
 
+def case_fsdp_step(rank: int, params: dict, batch: dict, steps: int) -> dict:
+    """One ``train_step`` of llama3.2-3b at SMOKE on a (2, 2) mesh from
+    JAX's parameters and ``batch``, twice: the parameters and moments
+    replicated (``TrainRun``'s layout) and laid out by
+    ``param_shardings(fsdp=True)`` (the dry run's: FSDP over "data", TP
+    over "model"). Returns each run's loss, grad norm, the placements of
+    the sharded run's parameters, ``whole_norm``, and (rank 0) the updated parameters and
+    moments whole; ``steps`` sets the optimizer's schedule as ``TrainRun``'s.
+    ``whole_norm`` is the norm of the gradients AdamW was handed, each
+    gathered whole (``full_tensor``) and summed as one device would."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core import interop
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw
+
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    cfg = registry.get_config("llama3.2-3b", smoke=True)
+    mod = registry.get_module(cfg)
+    ocfg = adamw.OptConfig(lr=1e-3, warmup_steps=20, total_steps=steps)
+    out = {}
+    for name, fsdp in (("replicated", False), ("fsdp", True)):
+        p0 = adamw.tree_map(lambda t: t.clone(), interop.lm_params_from_numpy(params, "cpu"))
+        opt = adamw.init(p0)
+        shard = sh.param_shardings(mesh, p0, fsdp=True) if fsdp else sh.replicated(mesh)
+        p = sh.distribute(p0, shard)
+        opt = opt._replace(mu=sh.distribute(opt.mu, shard), nu=sh.distribute(opt.nu, shard))
+        for t in adamw.tree_leaves(p):
+            t.requires_grad_(True)
+        b = batch_tensors(batch)
+        b = sh.distribute(b, sh.batch_shardings(mesh, b))
+        whole = []
+        apply = adamw.apply_updates
+
+        def recording(ocfg_, params_, grads, *args, _p=p, **kw):
+            """The norm of the gradients AdamW is handed, gathered whole."""
+            full = [DTensor.from_local(g, d.device_mesh, d.placements, shape=d.shape,
+                                       stride=d.stride()).full_tensor()
+                    for g, d in zip(adamw.tree_leaves(grads), adamw.tree_leaves(_p))]
+            whole.append(float(adamw.global_norm({str(i): g for i, g in enumerate(full)})))
+            return apply(ocfg_, params_, grads, *args, **kw)
+
+        adamw.apply_updates = recording
+        try:
+            with ttrain.mesh_scope(mesh):
+                p, opt, m = ttrain.train_step(mod, cfg, ocfg, p, opt, b)
+        finally:
+            adamw.apply_updates = apply
+        r = {"loss": float(_np(m["loss"])), "grad_norm": float(m["grad_norm"]),
+             "whole_norm": whole[0],
+             "placements": {k: tuple(repr(x) for x in v.placements) for k, v in flat(p).items()}}
+        trees = {k: {key: _np(v) for key, v in flat(t).items()}
+                 for k, t in (("params", p), ("mu", opt.mu), ("nu", opt.nu))}
+        if rank == 0:
+            r.update(trees, step=int(opt.step))
+        out[name] = r
+    return out
+
+
+def filled(tree, gen: torch.Generator):
+    """The dry run's meta tree (DTensors of meta shards included) with CPU
+    tensors of the same shapes, placements, dtypes and ``requires_grad``:
+    normal floats, zero integers (token ids in range)."""
+    from torch.distributed.tensor import DTensor
+
+    def real(t):
+        if isinstance(t, DTensor):
+            local = real(t.to_local()).detach()
+            out = DTensor.from_local(local, t.device_mesh, t.placements, run_check=False,
+                                     shape=t.shape, stride=t.stride())
+            return out.requires_grad_(t.requires_grad)
+        x = (torch.randn(t.shape, generator=gen).to(t.dtype) if t.dtype.is_floating_point
+             else torch.zeros(t.shape, dtype=t.dtype))
+        return x.requires_grad_(t.requires_grad)
+
+    if isinstance(tree, torch.Tensor):
+        return real(tree)
+    if isinstance(tree, dict):
+        return {k: filled(v, gen) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(filled(v, gen) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(filled(v, gen) for v in tree)
+    return tree
+
+
+def dry_cell_counts(arch: str, kind: str, batch: int, seq: int, mesh, fill: bool) -> dict:
+    """The dry run's SMOKE cell of ``arch`` (a ``kind`` step at ``batch`` x
+    ``seq``) on ``mesh``, counted by its ``CostCounter``: {"flops_by_op",
+    "kernels", "collectives"}. ``fill``: on CPU tensors of the cell's
+    shapes and layouts (:func:`filled`) instead of its meta ones."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    cfg, fn, args, _ = dryrun.build_cell(arch, ShapeSpec(kind, seq, batch, kind), smoke=True,
+                                         mesh=mesh)
+    if fill:
+        args = filled(args, torch.Generator().manual_seed(0))
+    counter, _ = dryrun.memory(fn, args)
+    return {"flops_by_op": counter.flops_by_op, "kernels": counter.kernels,
+            "collectives": counter.collectives}
+
+
+def case_dry_cells(rank: int, cells: list) -> dict:
+    """Each (arch, kind, batch, seq) of ``cells``: :func:`dry_cell_counts`
+    on a (2, 2) mesh of the gloo ranks, on CPU tensors."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    return {tuple(c): dry_cell_counts(*c, mesh, fill=True) for c in cells}
+
+
+def case_decode(rank: int, cells: list, steps: int) -> dict:
+    """Each (arch, kv_mode, batch, max_len) of ``cells``: the SMOKE model
+    (fp32 parameters from seed 0) prefills a 128-token prompt without a
+    mesh, then decodes ``steps`` tokens twice from copies of that cache:
+    without a mesh, and on a (2, 2) mesh with the cache on JAX's
+    ``cache_shardings`` layout (the dry run's) and the parameters
+    replicated. Returns the two runs' logits a step and, for the first
+    layer's cache leaves, whether the mesh run's are bit-equal."""
+    import dataclasses
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import shardings as sh
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.serve import modality_inputs
+    from repro_torch.models import partitioning as pt
+    from repro_torch.models import registry
+
+    mesh = mesh_lib.make_mesh((2, 2), ("data", "model"), "cpu")
+    out = {}
+    for arch, mode, b, max_len in cells:
+        cfg = dataclasses.replace(registry.get_config(arch, smoke=True), kv_mode=mode)
+        mod = registry.get_module(cfg)
+        params = mod.init_params(torch.Generator().manual_seed(0), cfg)
+        gen = torch.Generator().manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab, (b, 128), generator=gen, dtype=torch.int32)
+        toks = torch.randint(0, cfg.vocab, (steps, b, 1), generator=gen, dtype=torch.int32)
+        with torch.no_grad():
+            _, cache0 = mod.prefill(params, prompt, cfg, max_len,
+                                    **modality_inputs(cfg, b, "cpu"))
+            runs = {}
+            for name in ("plain", "mesh"):
+                cache = pt.tree_map(lambda t: t.clone(), cache0)
+                p, shard = params, None
+                if name == "mesh":
+                    shard = sh.cache_shardings(mesh, cache, b, max_len)
+                    cache = sh.distribute(cache, shard)
+                    p = sh.distribute(params, sh.replicated(mesh))
+                logits = []
+                with ttrain.mesh_scope(mesh if name == "mesh" else None):
+                    for tok in toks:
+                        if name == "mesh":
+                            tok = sh.distribute(tok, sh.batch_shardings(mesh, tok))
+                        lg, cache = mod.decode_step(p, tok, cache, cfg)
+                        logits.append(_np(lg))
+                first = [_np(t[0]) if t.dim() >= 1 else _np(t) for t in _leaves(cache)]
+                runs[name] = (logits, first,
+                              [str(s.spec) for s in _leaves(shard)] if shard else None)
+        out[(arch, mode, b, max_len)] = {
+            "plain": runs["plain"][0], "mesh": runs["mesh"][0], "specs": runs["mesh"][2],
+            "first_layer_equal": [bool(np.array_equal(a, c)) for a, c in
+                                  zip(runs["plain"][1], runs["mesh"][1])],
+            "first_layer_rel": [float(np.abs(a - c).max() / max(np.abs(a).max(), 1e-30))
+                                for a, c in zip(runs["plain"][1], runs["mesh"][1])]}
+    return out
+
+
+def _leaves(tree) -> list:
+    """The tensors (or shardings) of a cache's NamedTuples, in field order."""
+    if hasattr(tree, "_fields"):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 CASES = {"families": case_families, "train": case_train, "collectives": case_collectives,
-         "flops": case_flops}
+         "flops": case_flops, "fsdp_step": case_fsdp_step, "dry_cells": case_dry_cells,
+         "decode": case_decode}
 
 
 def _main(rank: int, world: int, workdir: str, timeout: float):

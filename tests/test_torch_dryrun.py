@@ -287,17 +287,6 @@ def test_run_cell_variants(variant):
     assert dec["memory"]["argument_size_in_bytes"] == want
 
 
-def test_waits_for_sharding(monkeypatch):
-    with pytest.raises(NotImplementedError):
-        dryrun.logits_sharding(None, treg.get_config("llama3.2-3b"), 8)
-    with pytest.raises(NotImplementedError):
-        dryrun.run_cell("llama3.2-3b", "train_4k", multi_pod=True, smoke=True)
-    for flag in ("--multi-pod", "--both"):
-        monkeypatch.setattr("sys.argv", ["dryrun", "--all", "--smoke", flag])
-        with pytest.raises(NotImplementedError):
-            dryrun.main()
-
-
 def test_cli_writes_a_record(monkeypatch, tmp_path):
     monkeypatch.setattr("sys.argv", ["dryrun", "--arch", "mamba2-130m", "--shape", "long_500k",
                                      "--smoke", "--out", str(tmp_path)])

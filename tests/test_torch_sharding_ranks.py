@@ -47,6 +47,20 @@ from test_torch_train import assert_run_close, run_readings
 ARCH = "llama3.2-3b"
 RUN = dict(smoke=True, steps=3, batch=4, seq=32, lr=1e-3, log_every=100)
 U = 2.0**-24
+#: The dry run's SMOKE train cells the four ranks count (arch, kind, B, L).
+DRY_CELLS = [("llama3.2-3b", "train", RUN["batch"], RUN["seq"]),
+             ("deepseek-moe-16b", "train", RUN["batch"], RUN["seq"])]
+#: Decode on the dry run's cache layouts (arch, kv_mode, B, max_len) at
+#: SMOKE on (2, 2): at B 4 x 256 the positions (or an anchored cache's
+#: blocks and tail rows) go over "model"; at B 1 x 8192 the positions over
+#: "data" and the kv heads (llama3.2-3b), Dh (granite-3-8b, one kv head)
+#: or MLA's latent over "model"; mamba2's state by heads, zamba2's and
+#: whisper's caches as the heuristic splits them.
+DECODE_CELLS = [("llama3.2-3b", "dense", 4, 256), ("llama3.2-3b", "dense", 1, 8192),
+                ("granite-3-8b", "dense", 1, 8192), ("llama3.2-3b", "anchored", 4, 256),
+                ("llama3.2-3b", "anchored", 1, 8192), ("deepseek-v2-236b", "dense", 4, 256),
+                ("deepseek-v2-236b", "dense", 1, 8192), ("mamba2-130m", "dense", 4, 256),
+                ("zamba2-1.2b", "dense", 4, 256), ("whisper-large-v3", "dense", 4, 256)]
 RESHARD = {"w": ((8, 6), ("data", "model")), "v": ((3, 8), (None, ("data", "model"))),
            "u": ((5,), ("model",)), "s": ((), ()), "i": ((4, 4), ("data", None))}
 
@@ -60,6 +74,14 @@ def _jax_reference(ckpt: str) -> dict:
     assert at == RUN["steps"]
     return {"losses": out["losses"], "params": lp.flat_params(out["params"]),
             "mu": lp.flat_params(st.mu), "nu": lp.flat_params(st.nu), "p0": lp.flat_params(pj0)}
+
+
+def _fsdp_batch() -> dict:
+    """``TrainRun``'s first batch at :data:`RUN`'s size."""
+    ct = lp.cfgs(ARCH)[1]
+    tok = global_batch_np(DataConfig(vocab=ct.vocab, seq_len=RUN["seq"],
+                                     global_batch=RUN["batch"]), 0)
+    return {"tokens": tok, "labels": tok}
 
 
 def _compress_inputs():
@@ -96,7 +118,11 @@ def runs(tmp_path_factory):
                 train=dict(params=lp.flat_params(pj0), run=RUN, ckpt_root=str(ckpt)),
                 collectives=dict(grads=grads, carry=carry, tree=_reshard_tree(),
                                  specs={k: s for k, (_, s) in RESHARD.items()}),
-                flops=dict(archs=[ARCH], run=RUN))
+                flops=dict(archs=[ARCH], run=RUN),
+                fsdp_step=dict(params=lp.flat_params(pj0), batch=_fsdp_batch(),
+                               steps=RUN["steps"]),
+                dry_cells=dict(cells=DRY_CELLS),
+                decode=dict(cells=DECODE_CELLS, steps=2))
         except BaseException as e:  # re-raised in the test's thread
             box["error"] = e
 
@@ -273,3 +299,91 @@ def test_each_rank_does_its_share_of_a_step(runs):
         assert r["flops"][ARCH][0] == mesh
         assert r["flops"][ARCH][1] == plain
     assert sum(mesh.values()) == (sum(plain.values()) + row) // 4, (mesh, plain, row)
+
+
+def test_a_step_on_fsdp_parameters_matches_the_replicated_one(runs):
+    """One ``train_step`` with the parameters and moments laid out by
+    ``param_shardings(fsdp=True)`` on the (2, 2) mesh (FSDP over "data", TP
+    over "model": each rank holds shards) against the same step with them
+    replicated, from the same inputs.
+
+    The clip's grad norm must be the norm over every rank's shards
+    (``train.mesh_grad_norm``), on every rank the same: the norm of the
+    gradients AdamW was handed, gathered whole, to the rounding of summing
+    their squares in another order: each sum of N positive fp32 terms is
+    within (log2(N) + 1) u of its value (u = 2^-24; torch sums a tensor
+    pairwise), the L leaves' and R ranks' partial sums add L + R more, so
+    |n_a^2 - n_b^2| <= 2 (log2(N) + L + R + 1) u n^2 and |n_a - n_b| <=
+    (log2(N) + L + R + 1) u n. Against the replicated run (whose gradients
+    reach their sums in another order, bf16 products included) the norm
+    agrees to ``lm_parity.GRAD_TOL_ULPS`` bf16 ulps, the gradients'
+    normwise tolerance; the loss is the forward's (weights gathered whole
+    before use), and the updated parameters and both moments are within
+    ``run_readings``' limits (``test_torch_train.py``)."""
+    ranks, ref, _ = runs
+    got = [r["fsdp_step"] for r in ranks]
+    rep, fsdp = got[0]["replicated"], got[0]["fsdp"]
+    assert any("Shard" in p[0] for p in fsdp["placements"].values())  # split over "data"
+    assert all(r["fsdp"]["grad_norm"] == fsdp["grad_norm"] for r in got)
+    leaves = ref["p0"]
+    n_el = max(v.size for v in leaves.values())
+    for run in (fsdp, rep):
+        bound = (np.ceil(np.log2(n_el)) + len(leaves) + len(ranks) + 1) * U * run["whole_norm"]
+        assert abs(run["grad_norm"] - run["whole_norm"]) <= bound, (run["grad_norm"],
+                                                                    run["whole_norm"], bound)
+    assert abs(fsdp["grad_norm"] - rep["grad_norm"]) <= (
+        lp.GRAD_TOL_ULPS * 2.0**-8 * rep["grad_norm"])
+    np.testing.assert_allclose(fsdp["loss"], rep["loss"], rtol=0, atol=_loss_tol())
+    assert fsdp["step"] == rep["step"] == 1
+    ref_rep = {"p0": ref["p0"], "params": rep["params"], "mu": rep["mu"], "nu": rep["nu"]}
+    assert_run_close(_as_run(fsdp), ref_rep, 1)
+
+
+@pytest.mark.parametrize("cell", DRY_CELLS, ids=[c[0] for c in DRY_CELLS])
+def test_a_fake_mesh_counts_what_gloo_rank_0_runs(runs, cell):
+    """The dry run's train cell on a fake (2, 2) mesh in this process (meta
+    tensors; ``launch.mesh.fake_mesh``) counts rank 0's work of the same
+    cell run on the four gloo ranks (CPU tensors of its shapes and
+    layouts, ``sharding_ranks.case_dry_cells``): FLOPs by aten op, the
+    kernels' calls and counts, and each collective's calls and bytes, by
+    JAX's name."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    ranks, _, _ = runs
+    want = ranks[0]["dry_cells"][cell]
+    with mesh_lib.fake_mesh((2, 2), ("data", "model")) as mesh:
+        got = sr.dry_cell_counts(*cell, mesh, fill=False)
+    assert not dist.is_initialized()
+    assert got["flops_by_op"] == want["flops_by_op"]
+    assert got["kernels"] == want["kernels"]
+    assert got["collectives"] == want["collectives"]
+    assert want["collectives"]["counts"]["all-reduce"] >= 1  # the clip's norm, at least
+
+
+@pytest.mark.parametrize("cell", DECODE_CELLS, ids=["-".join(map(str, c)) for c in DECODE_CELLS])
+def test_decode_on_the_dry_runs_cache_layouts(runs, cell):
+    """Decode steps on a (2, 2) mesh of four gloo ranks with the cache laid
+    out by ``cache_shardings`` (split positions, blocks, kv heads, Dh, the
+    latent, the SSM state) give the run without a mesh's logits within
+    ``transformer.logit_tolerance`` (8 bf16 ulps of the largest |logit|:
+    the mesh sums attention's partial scores and merges the ranks' softmax
+    parts in another order), on every rank; the first layer's cache, whose
+    inputs are the same bits, is bit-equal after the steps (each rank wrote
+    its own shard), but for mamba2's fp32 SSM state, whose einsums run on a
+    rank's two rows where the run without a mesh has four (another
+    blocking): within 4 u (u = 2^-24) of its largest element."""
+    ranks, _, _ = runs
+    got = ranks[0]["decode"][cell]
+    assert all(r["decode"][cell]["mesh"][0].shape == got["mesh"][0].shape for r in ranks)
+    assert any("model" in s for s in got["specs"]), got["specs"]
+    for plain, mesh in zip(got["plain"], got["mesh"]):
+        tol = float(ttr.logit_tolerance(torch.as_tensor(plain)).max())
+        np.testing.assert_allclose(mesh, plain, rtol=0, atol=tol)
+    for r in ranks:
+        for a, b in zip(r["decode"][cell]["mesh"], got["mesh"]):
+            np.testing.assert_array_equal(a, b)
+    ssm = cell[0] in ("mamba2-130m", "zamba2-1.2b")  # their first leaf is the SSM state
+    for i, (equal, rel) in enumerate(zip(got["first_layer_equal"], got["first_layer_rel"])):
+        assert equal or (ssm and i == 0 and rel <= 4 * U), (i, rel)
