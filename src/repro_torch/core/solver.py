@@ -22,9 +22,11 @@ of ``backend``, then the explicit WCSPH update and the Eq. (8) advance:
 The absolute algos (``"all"``, ``"cell"``) search and step on ``xn``.
 
 Where JAX traces ``lax.cond``/``lax.scan``, the port runs a Python loop:
-the rebuild decision is read on the host once per step (one device sync
-per step), and a rebuild reads one more flag (whether the counting sort's
-adjacency precondition holds). CUDA graphs are later work.
+the rebuild decision is read on the host once per step, and a rebuild
+reads whether the counting sort's adjacency precondition holds. These are
+two of the step's host syncs (``torch.cuda.set_sync_debug_mode("warn")``
+names each by its line). ``core/tracing.py``'s ``sph.*`` spans name the
+step's stretches for a profiler. CUDA graphs are later work.
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import cells as cells_lib
-from repro_torch.core import fused, health, nnps, rcll, sph, statepack
+from repro_torch.core import fused, health, nnps, rcll, sph, statepack, tracing
 from repro_torch.core import scheme as scheme_lib
 from repro_torch.core.domain import Domain
 from repro_torch.core.precision import PrecisionPolicy
@@ -311,6 +313,7 @@ def _empty_neighbor_list(n: int, device) -> nnps.NeighborList:
     )
 
 
+@tracing.spanned("sph.rebuild")
 def _rebuild(cfg: SPHConfig, carry: PersistentCarry) -> PersistentCarry:
     """Re-sort by cell (counting-sort pack against the carried binning),
     permute the whole state by one row gather, then build the backend's
@@ -319,13 +322,15 @@ def _rebuild(cfg: SPHConfig, carry: PersistentCarry) -> PersistentCarry:
     table dropped particles"), the r + skin neighbor list otherwise
     (whose overflow or window truncation folds into the flags)."""
     n = carry.order.shape[0]
-    ps = rcll.pack_state(cfg.domain, carry.st.rc, cfg.cap(n), prev=carry.binning)
+    with tracing.span("sph.rebuild.pack"):
+        ps = rcll.pack_state(cfg.domain, carry.st.rc, cfg.cap(n), prev=carry.binning)
     perm = ps.packing.order  # current-packed -> new-packed
     binning = ps.packing.binning
-    # The step updates rc.cell_xy in place; the stale binning must keep
-    # its own copy.
-    rc = ps.rc._replace(cell_xy=ps.rc.cell_xy.clone())
-    st, order = _permute_state_fused(carry.st, perm, rc, carry.order)
+    with tracing.span("sph.rebuild.permute"):
+        # The step updates rc.cell_xy in place; the stale binning must keep
+        # its own copy.
+        rc = ps.rc._replace(cell_xy=ps.rc.cell_xy.clone())
+        st, order = _permute_state_fused(carry.st, perm, rc, carry.order)
     cell_over = binning.overflow > 0
     overflow = carry.overflow | cell_over
     flags = health.fold_flag(carry.flags, cell_over, health.CELL_OVERFLOW)
@@ -503,6 +508,7 @@ _FORCE_BACKENDS = {
 }
 
 
+@tracing.spanned("sph.force")
 def _physics_step(cfg: SPHConfig, carry: PersistentCarry,
                   dt: float | torch.Tensor | None = None) -> PersistentCarry:
     """One WCSPH step on the packed state (explicit: every RHS term from
@@ -566,7 +572,9 @@ def step_persistent(cfg: SPHConfig, carry: PersistentCarry) -> PersistentCarry:
         # particle's spiked displacement rebuilds in the same step (the
         # overlap must reach the cell tables).
         carry = health.inject_fault(cfg.fault, carry)
-    if _needs_rebuild(cfg, carry):
+    with tracing.span("sph.decide"):
+        rebuild = _needs_rebuild(cfg, carry)
+    if rebuild:
         carry = _rebuild(cfg, carry)
     return _physics_step(cfg, carry)
 

@@ -24,7 +24,7 @@ from repro_torch.core import fused
 from repro_torch.core import nnps as nnps_lib
 from repro_torch.core import rcll as rcll_lib
 from repro_torch.core import scheme as scheme_lib
-from repro_torch.core import sph
+from repro_torch.core import sph, tracing
 from repro_torch.core.domain import Domain
 from repro_torch.core.precision import NNPS_STORE
 from repro_torch.kernels import cell_pack, nnps_pairwise, rcll_force, sph_gradient
@@ -273,9 +273,10 @@ def rcll_force_particles(
         scheme=scheme,
         counts=occupied_counts(binning),
     )
-    drho = unpack_per_particle(drho_t, binning) * m_scale
-    acc = unpack_per_particle(acc_t.transpose(1, 2), binning) * m_scale
-    return drho, acc
+    with tracing.span("rcll.unpack"):
+        drho = unpack_per_particle(drho_t, binning)
+        acc = unpack_per_particle(acc_t.transpose(1, 2), binning)
+    return drho * m_scale, acc * m_scale
 
 
 def _check_lane_index_range(lanes: int, n: int, c_total: int, cap: int, width: int) -> None:
