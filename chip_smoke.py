@@ -26,6 +26,7 @@ Phases (each prints its own lines and raises on failure):
   2. every kernel against its plain PyTorch version on the card, on
      random Verlet-advanced clouds (2-D ~65k and 3-D ~30k particles, some
      with every 97th particle massless):
+     P1 (the rebuild's pack, the advanced cloud against its pack) and
      K1 (cell pack) bit for bit in both slab layouts, K2 (fused force)
      by ``rcll_force.check_against_plain`` (each element within
      ``rounding_bound``, each output within ``NORMWISE_LIMIT`` over
@@ -47,21 +48,26 @@ Phases (each prints its own lines and raises on failure):
   3. the main path at full size: ``Simulation.from_case("taylor_green",
      ds=1/1024)`` (N = 1,048,576, fp16 records) through ``run_timed``
      with observables every 10 steps; launch counts are zeroed just
-     before and read just after; then K1 and K2 are timed on the main
-     path's own inputs beside their plain versions and their bounds (K1
-     also in a CUDA graph, with the bandwidth it reaches, and beside the
-     design of ``--parent`` when given);
+     before and read just after (P1, the rebuild's pack, once a rebuild
+     with no argsort fallback); then K1, K2 and P1 are checked and timed
+     on the main path's own inputs beside their plain versions and their
+     bounds (K1 also in a CUDA graph, with the bandwidth it reaches, and
+     beside the design of ``--parent`` when given);
   4. the stale-binning path: the skinned, dropped-column dam break at
      ~250k particles, long enough for >= 2 in-run rebuilds between which
-     K2 consumes non-zero cell shifts;
+     K2 consumes non-zero cell shifts (P1 once an in-run rebuild);
   5. a small taylor_green (ds = 1/64, 20 steps) through the kernels and
-     through the plain versions, both on the card, with fp32 and with fp16
+     through the plain versions (P1, K1 and K2), both on the card, with fp32 and with fp16
      records, at the CPU slice test's tolerances (see the phase);
   6. (only when asked: ``--phases 6``) where a main-path step's time
      goes: host-timed decision / rebuild / physics split with a
      synchronize after each, and a ``torch.profiler`` window with device
      time by kernel and the device's busy share;
-  7. planted faults: in K2 (the Morris term dropped, the EOS constant 1%
+  7. planted faults: in P1 (a run's particles bound for one cell in
+     reverse, a periodic seam's sources in offset order) the P1 check at
+     the main path's inputs and phase 2 must each fail on each (but the
+     main path for the seam, which its particles never cross); in K2 (the
+     Morris term dropped, the EOS constant 1%
      off, the last occupied slot of each neighbor tile skipped), the K2
      check at the main path's inputs, phase 2 and phase 5 must each fail
      on each; in K4 alone and in K5
@@ -349,20 +355,23 @@ WRAPPERS = (
     ("rcll_kv_attention", "rcll_kv_decode", "k6"),
     ("flash_attention", "flash_attention", "k7"),
     ("flash_attention", "flash_attention_bwd", "k7b"),
+    ("cell_sort", "repack", "p1"),
 )
 
 
 def _kernel_modules() -> dict:
-    from repro_torch.kernels import (cell_pack, flash_attention, nnps_pairwise, rcll_force,
-                                     rcll_kv_attention, sph_gradient)
+    from repro_torch.kernels import (cell_pack, cell_sort, flash_attention, nnps_pairwise,
+                                     rcll_force, rcll_kv_attention, sph_gradient)
 
     return {"cell_pack": cell_pack, "rcll_force": rcll_force,
             "sph_gradient": sph_gradient, "nnps_pairwise": nnps_pairwise,
-            "rcll_kv_attention": rcll_kv_attention, "flash_attention": flash_attention}
+            "rcll_kv_attention": rcll_kv_attention, "flash_attention": flash_attention,
+            "cell_sort": cell_sort}
 
 
 def wrapper(key: str):
-    """The kernel wrapper (and its launch counter) of K1..K7 and K7b."""
+    """The kernel wrapper (and its launch counter) of K1..K7, K7b and P1
+    (the rebuild's pack)."""
     mod, name, _ = next(w for w in WRAPPERS if w[2] == key)
     return getattr(_kernel_modules()[mod], name)
 
@@ -370,6 +379,8 @@ def wrapper(key: str):
 def _map_tensors(x, fn):
     if isinstance(x, torch.Tensor):
         return fn(x)
+    if hasattr(x, "_fields"):  # a NamedTuple, such as the pack's binning
+        return type(x)(*(_map_tensors(v, fn) for v in x))
     if isinstance(x, (tuple, list)):
         return type(x)(_map_tensors(v, fn) for v in x)
     if isinstance(x, dict):
@@ -406,16 +417,18 @@ def capture_kernel_inputs(store: dict, first_on_host: bool = False):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the force pass through the plain versions (on the card)."""
-    from repro_torch.kernels import cell_pack, rcll_force
+    """Route the rebuild's pack and the force pass through the plain
+    versions (on the card)."""
+    from repro_torch.kernels import cell_pack, cell_sort, rcll_force
 
-    k1, k2 = cell_pack.cell_tables, rcll_force.rcll_force
+    k1, k2, p1 = cell_pack.cell_tables, rcll_force.rcll_force, cell_sort.repack
     cell_pack.cell_tables = cell_pack.cell_tables_ref
     rcll_force.rcll_force = rcll_force.rcll_force_ref
+    cell_sort.repack = cell_sort.repack_ref
     try:
         yield
     finally:
-        cell_pack.cell_tables, rcll_force.rcll_force = k1, k2
+        cell_pack.cell_tables, rcll_force.rcll_force, cell_sort.repack = k1, k2, p1
 
 
 @contextlib.contextmanager
@@ -501,6 +514,20 @@ def k1_bytes(args, kw) -> int:
     c = starts.shape[0]
     read = n * (2 * f16 + 4 * f32) + 8 * c + 4 * f32
     return read + k1_out_bytes(args, kw)
+
+
+def p1_bytes(args) -> int:
+    """Bytes the rebuild's pack must move on these inputs: the current and
+    previous coordinates, the previous cell ids and counts and rel read
+    once; order, inverse, cell ids, the binning's order, coordinates, rel,
+    counts, the (C, cap) table and the overflow written once."""
+    domain, cell_xy, rel, cap, prev = args
+    n, dim = cell_xy.shape
+    c = domain.ncells_total
+    rel_bytes = n * dim * rel.element_size()
+    read = 2 * n * dim * 4 + n * 4 + c * 4 + rel_bytes
+    written = 4 * n * 4 + n * dim * 4 + rel_bytes + c * 4 + c * cap * 4 + 4
+    return read + written
 
 
 def k2_ops_per_pair(dim: int, scheme) -> int:
@@ -681,7 +708,8 @@ def phase1_build() -> dict:
 def _cloud_inputs(dim, n, scheme_kw, records, seed, massless=False,
                   dev=torch.device("cuda")):
     """K1/K2 inputs from ops.rcll_force_particles on a random cloud whose
-    positions were Verlet-advanced (so some cell shifts are non-zero);
+    positions were Verlet-advanced (so some cell shifts are non-zero), and
+    P1's (the advanced state against the pack it left, ``store["p1"]``);
     ``massless`` zeroes every 97th particle's mass (massless particles
     are occupied slots wherever they sit in a row)."""
     from repro_torch.core import cells, rcll
@@ -710,11 +738,12 @@ def _cloud_inputs(dim, n, scheme_kw, records, seed, massless=False,
     with capture_kernel_inputs(store):
         ops.rcll_force_particles(dom, ps.packing.binning, rc, v, m, rho,
                                  scheme=scheme_lib.Scheme(**scheme_kw), records_dtype=rdt)
+    store["p1"] = ((dom, rc.cell_xy, rc.rel, cap, ps.packing.binning), {})
     return store, shifted, int(ps.packing.binning.overflow)
 
 
 def phase2_kernels() -> None:
-    from repro_torch.kernels import rcll_force
+    from repro_torch.kernels import cell_sort, rcll_force
 
     wcsph = dict(c0=10.0, rho0=1.0, mu=0.05)
     dam = dict(c0=10.0 * math.sqrt(2.0), rho0=1.0, eos="tait", gamma=7.0,
@@ -734,12 +763,16 @@ def phase2_kernels() -> None:
             raise AssertionError("test cloud has no migrated particles")
         check_k1(*store["k1"])
         c2 = rcll_force.check_against_plain(*store["k2"])
+        fallbacks = cell_sort.repack.fallbacks
+        cell_sort.check_against_plain(*store["p1"][0])
+        if cell_sort.repack.fallbacks != fallbacks:
+            raise AssertionError("the test cloud's pack took the argsort oracle")
         eos = sch.get("eos", "linear")
         f16, f32 = store["k1"][0][0].shape[1], store["k1"][0][1].shape[1]
         log(f"[2] dim {dim} N {n} eos {eos} records {rec} massless "
             f"{'1 in 97' if massless else 'none'}: K1 bit-identical "
             f"(F16 {f16}, F32 {f32}); {k2_summary(c2)}; "
-            f"{shifted} particles with non-zero shift")
+            f"{shifted} particles with non-zero shift, P1 bit-identical")
     phase2_nnps()
     phase2_lm()
 
@@ -859,9 +892,9 @@ def k3_summary(c: dict) -> str:
 def phase3_main_path(results: dict, parent: Path | None = None) -> None:
     from repro_torch.core import solver
     from repro_torch.core.api import Simulation
-    from repro_torch.kernels import cell_pack, rcll_force
+    from repro_torch.kernels import cell_pack, cell_sort, rcll_force
 
-    K1, K2 = cell_pack.cell_tables, rcll_force.rcll_force
+    K1, K2, P1 = cell_pack.cell_tables, rcll_force.rcll_force, cell_sort.repack
     nsteps = 50
     sim = Simulation.from_case("taylor_green", ds=1.0 / 1024)
     n = sim.n_particles
@@ -871,16 +904,23 @@ def phase3_main_path(results: dict, parent: Path | None = None) -> None:
     torch.cuda.reset_peak_memory_stats()
     K1.launches = 0
     K2.launches = 0
+    P1.launches = P1.fallbacks = 0
     res, steps_per_s = sim.run_timed(nsteps, observe_every=10)
     torch.cuda.synchronize()
-    l1, l2 = K1.launches, K2.launches
+    l1, l2, lp, fp = K1.launches, K2.launches, P1.launches, P1.fallbacks
     driven = 2 * res.stats.steps  # run_timed: a warm-up run, then the timed run
+    # each run's first rebuild is init_persistent's pack, which has no prev
+    repacks = 2 * (res.stats.rebuilds - 1)
     log(f"[3] steps/s {steps_per_s:.3f} (timed run of {res.stats.steps} steps; "
         f"{driven} steps driven incl. warm-up)")
-    log(f"[3] launches: K1 {l1}, K2 {l2} (steps driven {driven}); "
+    log(f"[3] launches: K1 {l1}, K2 {l2} (steps driven {driven}); P1 {lp}, its argsort "
+        f"fallbacks {fp} (rebuilds with a previous pack driven {repacks}); "
         f"rebuilds in timed run {res.stats.rebuilds}; overflow {res.stats.overflow}")
     if l1 != driven or l2 != driven:
         raise AssertionError("K1/K2 launch counts differ from the step count")
+    if lp != repacks or fp:
+        raise AssertionError("P1 launches differ from the rebuilds, or a rebuild took the "
+                             "argsort oracle")
     peak = torch.cuda.max_memory_allocated()
     log(f"[3] max_memory_allocated {peak} bytes ({peak / 2**30:.2f} GiB)")
     st = res.state
@@ -894,17 +934,20 @@ def phase3_main_path(results: dict, parent: Path | None = None) -> None:
     if not np.all(np.diff(ke) < 0):
         raise AssertionError("taylor_green kinetic energy did not decrease monotonically")
     results["steps_per_s"] = steps_per_s
-    results["launches"] = {"cell_tables": l1, "rcll_force": l2}
+    results["launches"] = {"cell_tables": l1, "rcll_force": l2, "repack": lp}
 
-    # The main path's own K1/K2 inputs (one more step, outside the count).
+    # The main path's own K1/K2/P1 inputs (a second step, outside the count;
+    # with no skin it rebuilds, the first has not moved yet).
     store: dict = {}
-    carry = solver.init_persistent(cfg, sim.state)
+    carry = solver.step_persistent(cfg, solver.init_persistent(cfg, sim.state))
     with capture_kernel_inputs(store):
         solver.step_persistent(cfg, carry)
     a1, kw1 = store["k1"]
     a2, kw2 = store["k2"]
+    ap, _ = store["p1"]
     check_k1(a1, kw1)
     c2 = rcll_force.check_against_plain(a2, kw2)
+    cell_sort.check_against_plain(*ap)
     ms1 = time_ms_graph(lambda: K1(*a1, **kw1))
     eager1 = time_ms(lambda: K1(*a1, **kw1), reps=20)
     plain1 = time_ms(lambda: cell_pack.cell_tables_ref(*a1, **kw1), reps=10)
@@ -913,6 +956,9 @@ def phase3_main_path(results: dict, parent: Path | None = None) -> None:
     b1, by1 = bound(k1_bytes(a1, kw1), 0.0)
     pairs, inside, ops2, bytes2 = k2_work(a2, kw2)
     b2, by2 = bound(bytes2, ops2)
+    msp = time_ms(lambda: P1(*ap), reps=20)
+    plainp = time_ms(lambda: cell_sort.repack_ref(*ap), reps=3, warmup=1)
+    bp, byp = bound(p1_bytes(ap), 0.0)
     log(f"[3] K1 at main-path shapes rows16 {tuple(a1[0].shape)} rows32 "
         f"{tuple(a1[1].shape)} cap {kw1['cap']}: {ms1:.4f} ms a launch in a CUDA graph "
         f"({eager1:.4f} ms launched one by one from Python, the wrapper included; plain "
@@ -926,6 +972,10 @@ def phase3_main_path(results: dict, parent: Path | None = None) -> None:
         f"{ops2:.4g} ops, {bytes2} bytes); "
         f"{k2_summary(c2)}, in the kernel's "
         f"mass-normalized units (m_scale {float(carry.m_scale):.6g})")
+    log(f"[3] P1 at main-path shapes N {ap[1].shape[0]}, cells {ap[0].ncells_total}, cap "
+        f"{ap[3]}: {msp:.4f} ms a call (launched one by one from Python, the far-mover "
+        f"flag's host read inside; plain {plainp:.4f} ms), bound {bp:.4f} ms by {byp} "
+        f"({p1_bytes(ap)} bytes), every output bit-identical")
     results["kernels"] = [
         {"name": "cell_tables", "route": "cuda",
          "source": "src/repro_torch/csrc/cell_pack.cu",
@@ -937,14 +987,19 @@ def phase3_main_path(results: dict, parent: Path | None = None) -> None:
          "replaces": "src/repro/kernels/rcll_force.py:166",
          "launches": l2, "max_abs_err": c2["max_abs_err"], "ms": ms2, "plain_ms": plain2,
          "bound_ms": b2, "bound_by": by2, "library_ms": None},
+        {"name": "cell_sort", "route": "cuda",
+         "source": "src/repro_torch/csrc/cell_sort.cu",
+         "replaces": "src/repro/core/cells.py:211",
+         "launches": lp, "max_abs_err": 0.0, "ms": msp, "plain_ms": plainp,
+         "bound_ms": bp, "bound_by": byp, "library_ms": None},
     ]
 
 
 def phase4_stale_binning() -> None:
     from repro_torch.core import cases, solver
-    from repro_torch.kernels import cell_pack, rcll_force
+    from repro_torch.kernels import cell_pack, cell_sort, rcll_force
 
-    K1, K2 = cell_pack.cell_tables, rcll_force.rcll_force
+    K1, K2, P1 = cell_pack.cell_tables, rcll_force.rcll_force, cell_sort.repack
     ds = cases.resolve_ds("dam_break", 250_000)
     radius = 2.0 * cases.build_case("dam_break", ds=ds).h
     case = cases.build_case("dam_break", ds=ds, cell_factor=1.5,
@@ -955,6 +1010,7 @@ def phase4_stale_binning() -> None:
         f"skin {cfg.skin:.3e}, dt {cfg.dt:.3e}")
     K1.launches = 0
     K2.launches = 0
+    P1.launches = P1.fallbacks = 0
     t0 = time.perf_counter()
     carry = solver.init_persistent(cfg, st)
     steps, max_shifted, segments = 0, 0, 0
@@ -971,12 +1027,14 @@ def phase4_stale_binning() -> None:
     finite = all(bool(torch.isfinite(t).all())
                  for t in (out.rc.rel, out.fluid.v, out.fluid.rho))
     log(f"[4] {steps} steps in {wall:.2f} s; rebuilds {carry.rebuilds} "
-        f"({in_run} in-run); K1 launches {K1.launches}, K2 launches {K2.launches}; "
+        f"({in_run} in-run); K1 launches {K1.launches}, K2 launches {K2.launches}, "
+        f"P1 launches {P1.launches} (argsort fallbacks {P1.fallbacks}); "
         f"max particles with non-zero shift seen by K2 {max_shifted}; "
         f"overflow {bool(carry.overflow)}; finite {finite}")
     if in_run < 2 or max_shifted == 0:
         raise AssertionError("stale-binning path did not rebuild twice with live shifts")
-    if K1.launches != steps or K2.launches != steps or not finite or bool(carry.overflow):
+    if (K1.launches != steps or K2.launches != steps or P1.launches != in_run
+            or P1.fallbacks or not finite or bool(carry.overflow)):
         raise AssertionError("dam_break: launch counts, finiteness or overflow check failed")
 
 
@@ -1001,9 +1059,12 @@ def phase5_kernel_vs_plain_path() -> None:
     """
     from repro_torch.core import cases, solver
     from repro_torch.core.precision import FP32_RECORDS, PrecisionPolicy
+    from repro_torch.kernels import cell_sort
 
+    P1 = cell_sort.repack
     nsteps = 20
     for policy in (FP32_RECORDS, PrecisionPolicy()):
+        P1.launches = 0
         cfg, st = cases.build_case("taylor_green", ds=1.0 / 64, policy=policy).build()
         if policy.records == "fp32":
             tol = {"pos": 1e-6, "rho": 1e-6, "v": nsteps * cfg.dt * 1e-4}
@@ -1034,9 +1095,13 @@ def phase5_kernel_vs_plain_path() -> None:
                 f"|d{k}| final {final[k]:.3e}, max over the steps {worst[k]:.3e}"
                 for k in final) + "; held: " + ", ".join(
                 f"{k} {held[k]:.3e} <= {tol[k]:.3e}" for k in held)
-            + f"; rebuilds {ck.rebuilds}/{cp.rebuilds}")
+            + f"; rebuilds {ck.rebuilds}/{cp.rebuilds}, P1 launches {P1.launches} (the "
+            f"kernel side's)")
         if any(held[k] > tol[k] for k in held) or ck.rebuilds != cp.rebuilds:
             raise AssertionError(f"kernel path and plain path disagree ({policy.records} records)")
+        if P1.launches != ck.rebuilds - 1:  # init_persistent's first pack has no prev
+            raise AssertionError(f"P1 launched {P1.launches} times over the two paths' "
+                                 f"{ck.rebuilds - 1} rebuilds on the kernel side")
 
 
 def phase7_planted_faults() -> None:
@@ -1053,9 +1118,10 @@ def phase7_planted_faults() -> None:
     sim = Simulation.from_case("taylor_green", ds=1.0 / 1024)
     sim.run(50)
     store: dict = {}
-    with capture_kernel_inputs(store):
-        solver.step_persistent(sim.cfg, solver.init_persistent(sim.cfg, sim.state))
-    missed = k1_planted_faults(store)
+    carry = solver.step_persistent(sim.cfg, solver.init_persistent(sim.cfg, sim.state))
+    with capture_kernel_inputs(store):  # the second step rebuilds: P1's inputs too
+        solver.step_persistent(sim.cfg, carry)
+    missed = k1_planted_faults(store) + p1_planted_faults(store)
     params = rcll_force.kernel_params
     checks = (("main-path K2 check", lambda: rcll_force.check_against_plain(*store["k2"])),
               ("phase 2", phase2_kernels), ("phase 5", phase5_kernel_vs_plain_path))
@@ -1098,6 +1164,43 @@ def k1_planted_faults(store: dict) -> list:
                 log(f"[7] K1:{fault}: {name} failed, as it must: {e}")
             finally:
                 cell_pack.kernel_params = params
+    return missed
+
+
+#: (fault, check) pairs that cannot fail: Taylor-Green's velocity normal to
+#: its periodic seams is zero (sin 0), so no particle of the main path
+#: crosses a seam; phase 2's clouds, periodic in x, cross it.
+P1_CHECKS_BLIND_TO = {("P1:seam_order", "main-path P1 check")}
+
+
+def p1_planted_faults(store: dict) -> list:
+    """Faults planted in P1, the rebuild's pack, through its run-time
+    ``fault`` argument (each run's particles bound for one cell written in
+    reverse; a periodic axis's sources left in offset order across the
+    seam): the P1 check at the main path's inputs (``store``) and phase 2
+    must each fail on each, but for :data:`P1_CHECKS_BLIND_TO`. Returns
+    the (fault, check) pairs that passed."""
+    from repro_torch.kernels import cell_sort
+
+    checks = (("main-path P1 check", lambda: cell_sort.check_against_plain(*store["p1"][0])),
+              ("phase 2", phase2_kernels))
+    missed = []
+    for fault in cell_sort.FAULTS:
+        for name, check in checks:
+            params = cell_sort.kernel_params
+            cell_sort.kernel_params = cell_sort.planted_params(fault)
+            try:
+                check()
+                if (f"P1:{fault}", name) in P1_CHECKS_BLIND_TO:
+                    log(f"[7] P1:{fault}: {name} passed, as it must: no particle of the "
+                        f"Taylor-Green main path crosses a periodic seam; phase 2's do")
+                    continue
+                missed.append((f"P1:{fault}", name))
+                log(f"[7] P1:{fault}: {name} PASSED: the fault was not caught")
+            except AssertionError as e:
+                log(f"[7] P1:{fault}: {name} failed, as it must: {e}")
+            finally:
+                cell_sort.kernel_params = params
     return missed
 
 

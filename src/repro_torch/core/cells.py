@@ -10,7 +10,8 @@ optimization), after which cell c's occupants are exactly the packed ids
 table is pure arithmetic. A rebuild re-sorts with an O(3^d N) counting
 sort that reuses the previous packed order; a host-side check falls back
 to a stable argsort when a particle out-ran its 3^d neighborhood (the
-permutation is identical either way).
+permutation is identical either way). On the card ``kernels/cell_sort.py``
+runs the counting sort, with this path as its plain version.
 
 Integer state (cell ids, counts, tables, permutations) is int32, as in
 the JAX package; indexing converts to int64 where torch needs it.

@@ -107,13 +107,17 @@ class PackedState(NamedTuple):
 def pack_state(domain: Domain, state: RCLLState, capacity: int,
                prev: cells_lib.CellBinning | None = None) -> PackedState:
     """Spatially sort an RCLL state by flat cell id (counting-sort pack
-    when ``prev`` describes the current order)."""
-    cell_id = domain.flat_cell_id(state.cell_xy)
-    packing = cells_lib.pack_particles(
-        domain, cell_id, state.cell_xy, capacity, prev=prev
-    )
-    rc = RCLLState(cell_xy=packing.binning.cell_xy, rel=packing.pack(state.rel))
-    return PackedState(rc=rc, packing=packing)
+    when ``prev`` describes the current order: ``kernels/cell_sort.py``,
+    whose kernels run it on the card)."""
+    if prev is None:
+        cell_id = domain.flat_cell_id(state.cell_xy)
+        packing = cells_lib.pack_particles(domain, cell_id, state.cell_xy, capacity)
+        rel = packing.pack(state.rel)
+    else:
+        from repro_torch.kernels import cell_sort  # core stays kernel-free at import
+
+        packing, rel = cell_sort.repack(domain, state.cell_xy, state.rel, capacity, prev)
+    return PackedState(rc=RCLLState(cell_xy=packing.binning.cell_xy, rel=rel), packing=packing)
 
 
 def packed_neighbors(domain: Domain, pstate: PackedState, *, dtype=NNPS_STORE,

@@ -24,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("cell_pack.cu", "rcll_force.cu", "nnps_pairwise.cu", "sph_gradient.cu",
-           "flash_attention.cu", "flash_attention_bwd.cu", "rcll_kv_attention.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu", "rcll_kv_attention.cu",
+           "cell_sort.cu")
 HEADERS = ("tiling.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,4 +1,5 @@
-"""Kernel vs plain version on the card: K1, K4 and K5 bit for bit, K2, K3,
+"""Kernel vs plain version on the card: K1, K4, K5 and the rebuild's
+counting-sort pack bit for bit, K2, K3,
 K6 and K7 by their ``check_against_plain`` (derived rounding bound and
 normwise limit), K7b (K7's gradient) by ``check_bwd_against_plain``, and
 planted faults that those checks must catch. Marked
@@ -15,6 +16,7 @@ from repro_torch.core import cells as tcells
 from repro_torch.core import domain as td
 from repro_torch.core import rcll as trcll
 from repro_torch.kernels import cell_pack as tcp
+from repro_torch.kernels import cell_sort as tcs
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import nnps_pairwise as tnp
 from repro_torch.kernels import rcll_force as trf
@@ -153,6 +155,121 @@ def test_cell_tables_check_fails_a_planted_fault(cuda_device, monkeypatch, fault
     monkeypatch.setattr(tcp, "kernel_params", tcp.planted_params(fault))
     with pytest.raises(AssertionError, match="disagrees"):
         tcp.check_against_plain(args, dict(cap=cap))
+
+
+#: The rebuild's counting-sort pack: (domain, N, capacity or None for a
+#: roomy one). A tenth of the particles start in the cells at the low edge
+#: of each axis and move down by 0.9 of a cell: across the periodic seam,
+#: or pinned at a wall.
+SORT_CASES = {
+    "2d_periodic_seam": (dict(lo=(0.0, 0.0), hi=(1.0, 1.0), h=0.03, periodic=(True, True)),
+                         3000, None),
+    "2d_walls_clamped": (dict(lo=(-0.15, -0.15), hi=(2.15, 1.3), h=0.06, cell_factor=1.5),
+                         3000, None),
+    "3d": (dict(lo=(0.0,) * 3, hi=(1.0,) * 3, h=0.05, periodic=(True, False, True)), 3000, None),
+    "empty_and_over_cap": (dict(lo=(0.0, 0.0), hi=(2.0, 1.0), h=0.02, periodic=(True, False)),
+                           1500, 3),
+    "n0": (dict(lo=(0.0, 0.0), hi=(1.0, 1.0), h=0.05, periodic=(True, True)), 0, None),
+    "n1": (dict(lo=(0.0, 0.0), hi=(1.0, 1.0), h=0.05, periodic=(True, False)), 1, None),
+}
+
+
+def _sort_inputs(dev, case, seed=0, far=False):
+    """A packed cloud advanced by under a cell (or one particle by three
+    cells, ``far``): (domain, advanced state, capacity, previous binning)."""
+    spec, n, cap = SORT_CASES[case]
+    rng = np.random.default_rng(seed)
+    dom = td.Domain(**spec)
+    lo, hi = np.asarray(spec["lo"]), np.asarray(spec["hi"])
+    u = rng.uniform(0, 1, (n, dom.dim))
+    u[: n // 10] *= 0.02
+    x = torch.as_tensor((lo + u * (hi - lo)).astype(np.float32), device=dev)
+    cap = cap or tcells.default_capacity(dom, max(n, 1), safety=6.0)
+    ps = trcll.pack_state(dom, trcll.init_state(dom, dom.normalize(x)), cap)
+    dxn = rng.uniform(-0.9, 0.9, (n, dom.dim)) * dom.hc_ref
+    dxn[ps.rc.cell_xy.cpu().numpy() == 0] = -0.9 * dom.hc_ref
+    if far:
+        dxn[n // 2, 0] = 3.5 * dom.hc_ref
+    at = trcll.advance(dom, ps.rc, torch.as_tensor(dxn.astype(np.float32), device=dev))
+    return dom, at, cap, ps.packing.binning
+
+
+def _assert_sort_is_stable_argsort(dom, at, packing):
+    cid = dom.flat_cell_id(at.cell_xy)
+    assert torch.equal(packing.order, torch.argsort(cid, stable=True).to(torch.int32))
+    assert torch.equal(packing.inverse, tcells._argsort_positions(cid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SORT_CASES))
+def test_cell_sort_pack_bit_identical(cuda_device, case):
+    """Every output of the pack against the plain path and the stable
+    argsort, with the preconditions of each case shown to hold."""
+    dom, at, cap, prev = _sort_inputs(cuda_device, case)
+    n = at.cell_xy.shape[0]
+    delta = (at.cell_xy - prev.cell_xy).cpu()
+    if case == "2d_periodic_seam":
+        assert int((delta.abs() == dom.ncells[0] - 1).sum()) > 10  # crossed the seam
+    if case == "2d_walls_clamped":
+        assert int((at.rel == -1.0).sum()) > 10  # pinned at the wall
+    launches, fallbacks = tcs.repack.launches, tcs.repack.fallbacks
+    tcs.check_against_plain(dom, at.cell_xy, at.rel, cap, prev)
+    torch.cuda.synchronize()
+    assert (tcs.repack.launches, tcs.repack.fallbacks) == (launches + 1, fallbacks)
+    packing, _ = tcs.repack(dom, at.cell_xy, at.rel, cap, prev)
+    _assert_sort_is_stable_argsort(dom, at, packing)
+    counts = packing.binning.counts
+    assert int(counts.sum()) == n
+    if case == "empty_and_over_cap":
+        assert int(packing.binning.overflow) > 0 and int((counts == 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cell_sort_far_mover_takes_the_oracle(cuda_device):
+    """A particle three cells away: the argsort oracle runs, counted as a
+    fallback and not as a pack, with the plain path's outputs."""
+    dom, at, cap, prev = _sort_inputs(cuda_device, "2d_walls_clamped", far=True)
+    launches, fallbacks = tcs.repack.launches, tcs.repack.fallbacks
+    tcs.check_against_plain(dom, at.cell_xy, at.rel, cap, prev)
+    assert (tcs.repack.launches, tcs.repack.fallbacks) == (launches, fallbacks + 1)
+
+
+@pytest.mark.cuda
+def test_cell_sort_pack_is_deterministic(cuda_device):
+    dom, at, cap, prev = _sort_inputs(cuda_device, "3d", seed=4)
+    one = tcs.outputs(*tcs.repack(dom, at.cell_xy, at.rel, cap, prev))
+    two = tcs.outputs(*tcs.repack(dom, at.cell_xy, at.rel, cap, prev))
+    for name, a in one.items():
+        assert torch.equal(tcs._bits(a), tcs._bits(two[name])), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", tcs.FAULTS)
+def test_cell_sort_check_fails_a_planted_fault(cuda_device, monkeypatch, fault):
+    """The bit-for-bit check catches a wrong pack: each run walked
+    backwards, or the sources left in offset order across the seam."""
+    dom, at, cap, prev = _sort_inputs(cuda_device, "2d_periodic_seam", seed=2)
+    tcs.check_against_plain(dom, at.cell_xy, at.rel, cap, prev)
+    monkeypatch.setattr(tcs, "kernel_params", tcs.planted_params(fault))
+    with pytest.raises(AssertionError, match="disagrees"):
+        tcs.check_against_plain(dom, at.cell_xy, at.rel, cap, prev)
+
+
+@pytest.mark.parametrize("case", list(SORT_CASES))
+def test_cell_sort_cpu_tensors_take_the_plain_path(monkeypatch, case):
+    """On the CPU ``rcll.pack_state`` with ``prev`` runs the plain version:
+    no kernel is loaded or counted, and the permutation is the stable
+    argsort's."""
+    monkeypatch.setattr(tcs, "_entries", lambda: pytest.fail("kernel library loaded"))
+    dom, at, cap, prev = _sort_inputs(torch.device("cpu"), case)
+    launches, fallbacks = tcs.repack.launches, tcs.repack.fallbacks
+    ps = trcll.pack_state(dom, at, cap, prev=prev)
+    packing, rel = tcs.repack_ref(dom, at.cell_xy, at.rel, cap, prev)
+    got, want = tcs.outputs(ps.packing, ps.rc.rel), tcs.outputs(packing, rel)
+    for name, a in got.items():
+        assert torch.equal(tcs._bits(a), tcs._bits(want[name])), name
+    _assert_sort_is_stable_argsort(dom, at, ps.packing)
+    assert (tcs.repack.launches, tcs.repack.fallbacks) == (launches, fallbacks)
 
 
 def _tiles_on(t, kw, dev):

@@ -24,9 +24,9 @@ NESTING = {"sph.decide": None, "sph.rebuild": None, "sph.rebuild.pack": "sph.reb
 #: decision, the unpack's four boolean-mask gathers and eight constants
 #: uploaded from pageable memory ...
 STEP_SYNCS = 13
-#: ... and of a rebuild by the counting sort: the adjacency check, two
-#: CUDA ``bincount``s reading their input's min and max, and nine uploads.
-REBUILD_SYNCS = 14
+#: ... and of a rebuild by the counting sort: the pack's one host read, its
+#: kernels' flag of a particle that moved past its neighbor cells.
+REBUILD_SYNCS = 1
 #: Host calls that wait for the device's queue to drain.
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
 
